@@ -1,0 +1,228 @@
+"""K2, the banded realign round: forward NW DP plus traceback.
+
+Port of ``dentist_tpu/ops/consensus.py:_nw_round_parts``.  For N
+independent (template, read) lanes it fills a W-cell band per template
+row (free leading template gap, ``lead_free`` leading read chars free
+or all of them), picks the first best "read exhausted" row, traces the
+path back and reduces it into dense per-lane columns:
+
+- ``sym`` (N, T) int8 — 0..3 read base, 4 deletion, 5 uncovered;
+- ``ins`` (N, T+1, 4) int8 — ranked insertions before each column
+  (0 none, 1..4 base+1);
+- ``jpath`` (N, T+1) int32 — read coordinate crossing each template
+  boundary (−1 uncovered);
+- ``spans`` (N, 2), ``diffs`` (N,), ``win`` (N, NWIN) int32 and
+  ``covered`` (N,) bool.
+
+:func:`nw_round` launches ``csrc/nw_round.cu`` for CUDA tensors and runs
+:func:`nw_round_reference`, the plain PyTorch version, for CPU tensors.
+Band centers must step by 0..2 per row, as the host builds them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+from ..errors import KernelError
+
+__all__ = ["nw_round", "nw_round_reference", "INF"]
+
+INF = 1 << 28
+_DIAG, _UP, _LEFT, _NONE = 0, 1, 2, 3
+_TRACE = 126
+
+#: launches of the K2 kernel (never of the plain version)
+launches = 0
+
+
+def _check_args(tpl, t_lens, reads, read_lens, centers, T, W, S, NWIN):
+    N, RL = reads.shape
+    if tpl.shape != (T, N) or centers.shape != (T + 1, N):
+        raise KernelError("tpl must be (T, N) and centers (T+1, N)")
+    if t_lens.shape != (N,) or read_lens.shape != (N,):
+        raise KernelError("t_lens and read_lens must be (N,)")
+    if tpl.dtype != torch.uint8 or reads.dtype != torch.uint8:
+        raise KernelError("tpl and reads must be uint8")
+    for x in (t_lens, read_lens, centers):
+        if x.dtype != torch.int32:
+            raise KernelError("t_lens, read_lens and centers must be int32")
+    devs = {x.device for x in (tpl, t_lens, reads, read_lens, centers)}
+    if len(devs) != 1:
+        raise KernelError("nw_round inputs must share a device")
+    if W % 32 or not 32 <= W <= 1024 or T < 1 or RL < 1 or S < 0 or NWIN < 1:
+        raise KernelError(f"unsupported shape T={T} W={W} RL={RL}")
+    return N, RL
+
+
+def nw_round(tpl, t_lens, reads, read_lens, centers, T: int, W: int, S: int,
+             NWIN: int, lead_free: int = -1):
+    """One realign round for N lanes (see the module docstring).
+
+    ``tpl`` (T, N) uint8, ``t_lens`` (N,) int32, ``reads`` (N, RL)
+    uint8, ``read_lens`` (N,) int32, ``centers`` (T+1, N) int32.
+    Returns ``(sym, ins, jpath, spans, diffs, win, covered)`` tensors on
+    the inputs' device."""
+    global launches
+    N, RL = _check_args(tpl, t_lens, reads, read_lens, centers, T, W, S, NWIN)
+    dev = tpl.device
+    if dev.type == "cpu":
+        return nw_round_reference(tpl, t_lens, reads, read_lens, centers,
+                                  T, W, S, NWIN, lead_free)
+    if dev.type != "cuda":
+        raise KernelError(f"nw_round: no kernel for device {dev}")
+    tpl_nt = tpl.t().contiguous()
+    cen_nt = centers.t().contiguous()
+    reads = reads.contiguous()
+    t_lens = t_lens.contiguous()
+    read_lens = read_lens.contiguous()
+    moves = torch.empty((N, T, W), dtype=torch.uint8, device=dev)
+    sym = torch.empty((N, T), dtype=torch.int8, device=dev)
+    ins = torch.empty((N, T + 1, 4), dtype=torch.int8, device=dev)
+    jpath = torch.empty((N, T + 1), dtype=torch.int32, device=dev)
+    spans = torch.empty((N, 2), dtype=torch.int32, device=dev)
+    diffs = torch.empty((N,), dtype=torch.int32, device=dev)
+    win = torch.empty((N, NWIN), dtype=torch.int32, device=dev)
+    covered = torch.empty((N,), dtype=torch.bool, device=dev)
+    if N:
+        fn = _build.kernel_fn("dentist_nw_round", 13, 8)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            status = fn(tpl_nt.data_ptr(), t_lens.data_ptr(), reads.data_ptr(),
+                        read_lens.data_ptr(), cen_nt.data_ptr(),
+                        moves.data_ptr(), sym.data_ptr(), ins.data_ptr(),
+                        jpath.data_ptr(), spans.data_ptr(), diffs.data_ptr(),
+                        win.data_ptr(), covered.data_ptr(),
+                        N, T, RL, W, S, NWIN, lead_free, _TRACE, stream)
+        _build.check("dentist_nw_round", status)
+        with _build.launch_lock:
+            launches += 1
+    return sym, ins, jpath, spans, diffs, win, covered
+
+
+def nw_round_reference(tpl, t_lens, reads, read_lens, centers, T: int, W: int,
+                       S: int, NWIN: int, lead_free: int = -1):
+    """Plain PyTorch version of :func:`nw_round`: a Python loop over
+    template rows and traceback steps, vectorized over lanes."""
+    dev = tpl.device
+    i64 = torch.int64
+    N, RL = reads.shape
+    tplT = (tpl.t().to(i64) & 3)  # (N, T)
+    rd = reads.to(i64) & 3
+    rl = read_lens.to(i64)
+    tl = t_lens.to(i64)
+    cen = centers.t().to(i64)  # (N, T+1)
+    p = torch.arange(W, device=dev, dtype=i64)[None, :]
+    lane = torch.arange(N, device=dev)
+    rl_clip = torch.clamp(rl - W // 2, min=0)
+
+    def off_from(c):  # c is (N,) or (N, X)
+        clip = rl_clip.view(N, *([1] * (c.dim() - 1)))
+        return torch.minimum(torch.clamp(c - W // 2, min=-(W // 2)), clip)
+
+    offs = off_from(cen)  # (N, T+1)
+    j0 = offs[:, :1] + p
+    d_init = (torch.zeros_like(j0) if lead_free < 0
+              else torch.clamp(j0 - lead_free, min=0))
+    D = torch.where((j0 >= 0) & (j0 <= rl[:, None]), d_init, INF)
+    inf = torch.full((N, 1), INF, dtype=i64, device=dev)
+    # rows past every lane's template are all invalid: no moves, no ends
+    moves = torch.full((T, N, W), _NONE, dtype=torch.uint8, device=dev)
+    d_at = torch.full((T, N), INF, dtype=i64, device=dev)
+    T_eff = min(T, int(tl.max())) if N else 0
+    for i in range(1, T_eff + 1):
+        off = offs[:, i : i + 1]
+        s = off - offs[:, i - 1 : i]
+        padded = torch.cat([inf, D, inf, inf], dim=1)  # index q+1 ↔ D[q]
+        E = padded.gather(1, p + s + 1)
+        E1 = padded.gather(1, p + s)
+        r_ch = rd.gather(1, torch.clamp(off - 1 + p, 0, RL - 1))
+        j = off + p
+        sub = (r_ch != tplT[:, i - 1 : i]).to(i64)
+        diag = torch.where(j >= 1, E1 + sub, INF)
+        up = E + 1
+        up = torch.where(j == 0, torch.clamp(up, max=0), up)
+        tmp = torch.minimum(diag, up)
+        choose_up = up < diag
+        D = torch.cummin(tmp - p, dim=1).values + p
+        from_left = D < tmp
+        valid = (j >= 0) & (j <= rl[:, None]) & (i <= tl)[:, None]
+        D = torch.where(valid, torch.clamp(D, max=INF), INF)
+        move = torch.where(from_left, _LEFT, torch.where(choose_up, _UP, _DIAG))
+        move = move | (r_ch << 2) | (sub << 4)
+        moves[i - 1] = torch.where(valid, move, _NONE).to(torch.uint8)
+        d_at[i - 1] = torch.where((j == rl[:, None]) & valid, D, INF).min(dim=1).values
+
+    dmin = d_at.min(dim=0).values
+    best_i = torch.argmin(d_at, dim=0) + 1
+    covered = dmin < INF
+    i0 = torch.where(covered, best_i, 0)
+    j_start = torch.where(covered, rl, 0)
+
+    # traceback over path steps (i or j strictly decreases)
+    i, j = i0, j_start
+    run = torch.zeros(N, dtype=i64, device=dev)
+    active = covered & (i0 > 0) & (j_start > 0)
+    steps_I, steps_J, steps_MV, steps_RUN = [], [], [], []
+    for step in range(S):
+        if step % 64 == 0 and not bool(active.any()):
+            break
+        off = off_from(cen.gather(1, torch.clamp(i, 0, T)[:, None])[:, 0])
+        pp = j - off
+        inb = (pp >= 0) & (pp < W) & (i >= 1)
+        mv_raw = moves[torch.clamp(i - 1, 0, T - 1), lane,
+                       torch.clamp(pp, 0, W - 1)].to(i64)
+        mv_raw = torch.where(active & inb, mv_raw, _NONE)
+        steps_I.append(i)
+        steps_J.append(j)
+        steps_MV.append(mv_raw)
+        steps_RUN.append(run)
+        mv = mv_raw & 3
+        is_d, is_u, is_l = mv == _DIAG, mv == _UP, mv == _LEFT
+        i = i - (is_d | is_u).to(i64)
+        j = j - (is_d | is_l).to(i64)
+        run = torch.where(is_l, run + 1, 0)
+        active = active & (mv != _NONE) & (i > 0) & (j > 0)
+    i_f = i
+
+    sym0 = torch.full((N, T + 1), 5, dtype=i64, device=dev)
+    ins0 = torch.zeros((N, (T + 2) * 4), dtype=i64, device=dev)
+    jp0 = torch.full((N, T + 2), -1, dtype=i64, device=dev)
+    jp0[lane, torch.clamp(i0, 0, T)] = torch.where(covered, j_start, -1)
+    win0 = torch.zeros((N, NWIN + 1), dtype=i64, device=dev)
+    if steps_I:
+        I = torch.stack(steps_I, dim=1)  # (N, steps)
+        J = torch.stack(steps_J, dim=1)
+        MV_RAW = torch.stack(steps_MV, dim=1)
+        RUN = torch.stack(steps_RUN, dim=1)
+        MV = MV_RAW & 3
+        base = (MV_RAW >> 2) & 3
+        diag_or_up = (MV == _DIAG) | (MV == _UP)
+        is_left = MV == _LEFT
+        symval = torch.where(MV == _DIAG, base, 4)
+        sym0.scatter_reduce_(
+            1, torch.where(diag_or_up, torch.clamp(I - 1, 0, T - 1), T),
+            torch.where(diag_or_up, symval, 127), reduce="amin")
+        ins_ok = is_left & (RUN < 4)
+        ins0.scatter_reduce_(
+            1, torch.where(ins_ok, torch.clamp(I, 0, T), T + 1) * 4
+            + torch.where(ins_ok, RUN, 0),
+            torch.where(ins_ok, base + 1, 0), reduce="amax")
+        jp0.scatter_reduce_(
+            1, torch.where(diag_or_up, torch.clamp(I - 1, 0, T), T + 1),
+            torch.where(diag_or_up, J - (MV == _DIAG).to(i64), -1),
+            reduce="amax")
+        mism = (MV == _DIAG) & (((MV_RAW >> 4) & 1) == 1)
+        contrib = mism | (MV == _UP) | is_left
+        w = torch.where(is_left, torch.minimum(I, tl[:, None] - 1), I - 1) // _TRACE
+        win0.scatter_add_(
+            1, torch.where(contrib, torch.clamp(w, 0, NWIN - 1), NWIN),
+            contrib.to(i64))
+    sym = sym0[:, :T].to(torch.int8)
+    ins = ins0.view(N, T + 2, 4)[:, : T + 1].to(torch.int8)
+    jpath = jp0[:, : T + 1].to(torch.int32)
+    spans = torch.stack([torch.where(covered, i_f, 0),
+                         torch.where(covered, i0, 0)], dim=1).to(torch.int32)
+    diffs = torch.where(covered, dmin, 0).to(torch.int32)
+    win = win0[:, :NWIN].to(torch.int32)
+    return sym, ins, jpath, spans, diffs, win, covered

@@ -1,0 +1,175 @@
+"""K1 (``dentist_tpu_torch.ops.banded``) against the JAX extension DP.
+
+The same seeded numpy inputs go through ``_extend_scan_v3`` /
+``_extend_scan_v3_resident`` (plain ``jax.jit`` on the CPU backend) and
+through the port's wrapper on CPU tensors, which runs the plain PyTorch
+version.  Every DP here is integer, so the tolerance is 0: outputs must
+be bit-equal.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import dentist_tpu.ops.banded as B
+import dentist_tpu_torch.ops.banded as TB
+from dentist_tpu_torch.errors import KernelError
+
+
+def _offs(num_k, R, W):
+    rows = np.arange(R + 1, dtype=np.int64)
+    return ((rows[:, None] * num_k[None, :]) // R - W // 2).astype(np.int32)
+
+
+def _host_lanes(seed, W, N, R, K, a_len=None, b_len=None):
+    rng = np.random.default_rng(seed)
+    BW = TB.bw_for(R, W)
+    a_win = rng.integers(0, 4, (N, R)).astype(np.uint8)
+    b_win = rng.integers(0, 4, (N, BW)).astype(np.uint8)
+    # lanes that share most of A with their B window, so alignments form
+    for n in range(0, N, 2):
+        L = R // 2
+        b_win[n, W : W + L] = a_win[n, :L]
+    if a_len is None:
+        a_len = rng.integers(R // 2, R + 1, N).astype(np.int32)
+    if b_len is None:
+        b_len = rng.integers(R // 2, int(1.1 * R), N).astype(np.int32)
+    num_k = np.array([R, int(1.05 * R), int(0.95 * R), R][:K], np.int32)
+    lane_k = (np.arange(N) % K).astype(np.int32)
+    return a_win, b_win, a_len, b_len, num_k, lane_k, BW
+
+
+def _port_host_windows(a_win, b_win, a_len, b_len, num_k, lane_k, diag_lo,
+                       diag_hi, R, W):
+    N = a_win.shape[0]
+    BW = b_win.shape[1]
+    scratch = torch.from_numpy(np.concatenate([a_win.ravel(), b_win.ravel()]))
+    meta = TB.host_window_meta(a_len, b_len, lane_k, diag_lo, diag_hi, N, R, BW)
+    launches = TB.launches
+    out = TB.extend(scratch, torch.from_numpy(meta), num_k, R=R, W=W)
+    assert TB.launches == launches, "a CPU tensor must not launch the kernel"
+    return out.numpy()
+
+
+@pytest.mark.parametrize("W,N,R,K,seed", [(64, 16, 252, 4, 11),
+                                          (256, 8, 504, 3, 21)])
+def test_extend_random_lanes_equal_jax(W, N, R, K, seed):
+    a_win, b_win, a_len, b_len, num_k, lane_k, _ = _host_lanes(seed, W, N, R, K)
+    diag_lo = np.full(N, -TB.DIAG_UNBOUNDED, np.int32)
+    diag_hi = np.full(N, TB.DIAG_UNBOUNDED, np.int32)
+    ref = np.asarray(B._extend_scan_v3(
+        jnp.asarray(np.ascontiguousarray(a_win.T)), jnp.asarray(b_win),
+        jnp.asarray(b_len), jnp.asarray(_offs(num_k, R, W)),
+        jnp.asarray(lane_k), jnp.asarray(a_len), jnp.asarray(diag_lo),
+        jnp.asarray(diag_hi), W=W, bound_diag=False))
+    got = _port_host_windows(a_win, b_win, a_len, b_len, num_k, lane_k,
+                             diag_lo, diag_hi, R, W)
+    assert ref.shape == got.shape == (4 + R // 126, N)
+    assert (ref[0] > 0).any(), "scenario must produce alignments"
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_extend_diag_bounds_equal_jax():
+    W, N, R, K = 64, 8, 252, 2
+    a_win, b_win, a_len, b_len, _, lane_k, _ = _host_lanes(
+        12, W, N, R, K, a_len=np.full(N, R, np.int32),
+        b_len=np.full(N, R, np.int32))
+    num_k = np.array([R, R], np.int32)
+    diag_lo = np.full(N, -TB.DIAG_UNBOUNDED, np.int32)
+    diag_hi = np.full(N, TB.DIAG_UNBOUNDED, np.int32)
+    diag_hi[::2] = 40  # tandem-style identity exclusion on even lanes
+    diag_lo[1::4] = -30
+    ref = np.asarray(B._extend_scan_v3(
+        jnp.asarray(np.ascontiguousarray(a_win.T)), jnp.asarray(b_win),
+        jnp.asarray(b_len), jnp.asarray(_offs(num_k, R, W)),
+        jnp.asarray(lane_k), jnp.asarray(a_len), jnp.asarray(diag_lo),
+        jnp.asarray(diag_hi), W=W, bound_diag=True))
+    got = _port_host_windows(a_win, b_win, a_len, b_len, num_k, lane_k,
+                             diag_lo, diag_hi, R, W)
+    np.testing.assert_array_equal(got, ref)
+
+
+def _resident_case(seed, W, N, R, K):
+    """A random store plus lanes with reversed A, reversed and/or
+    complemented B, clipped [c_lo, c_hi) and a few diagonal bounds."""
+    rng = np.random.default_rng(seed)
+    BW = TB.bw_for(R, W)
+    size = 4 * (R + BW) + 2 * TB.RESIDENT_PAD
+    arena = rng.integers(0, 4, size).astype(np.uint8)
+    src = rng.integers(TB.RESIDENT_PAD, size - TB.RESIDENT_PAD - R, N)
+    meta = np.zeros((12, N), np.int32)
+    meta[0] = src
+    meta[1] = rng.integers(0, 2, N)
+    meta[2] = rng.integers(R // 2, R + 1, N)
+    # B windows start near the A window so lanes align (with flips they
+    # mostly do not, which exercises the low-score paths)
+    meta[3] = src - W + rng.integers(-3, 4, N)
+    meta[4] = rng.integers(0, 2, N)
+    meta[5] = rng.integers(0, 2, N)
+    meta[6] = rng.integers(0, W // 2, N)
+    meta[7] = meta[6] + rng.integers(R, BW - W // 2, N)
+    meta[8] = rng.integers(R // 2, int(1.1 * R), N)
+    meta[9] = np.arange(N) % K
+    meta[10] = -TB.DIAG_UNBOUNDED
+    meta[11] = TB.DIAG_UNBOUNDED
+    meta[11, ::5] = 25
+    num_k = np.array([R, int(1.04 * R), int(0.97 * R), R][:K], np.int32)
+    return arena, meta, num_k, BW
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+def test_extend_resident_lanes_equal_jax(seed):
+    W, N, R, K = 64, 16, 252, 3
+    arena, meta, num_k, BW = _resident_case(seed, W, N, R, K)
+    ref = np.asarray(B._extend_scan_v3_resident(
+        jnp.asarray(arena), jnp.asarray(meta), jnp.asarray(num_k), R=R, N=N,
+        K=K, W=W, BW=BW, bound_diag=True))
+    got = TB.extend(torch.from_numpy(arena), torch.from_numpy(meta), num_k,
+                    R=R, W=W).numpy()
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_unpack_extension_matches_jax():
+    arena, meta, num_k, BW = _resident_case(5, 64, 8, 252, 2)
+    out = TB.extend(torch.from_numpy(arena), torch.from_numpy(meta), num_k,
+                    R=252, W=64)
+    for a, b in zip(TB.unpack_extension(out), B.unpack_extension(out.numpy())):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_extend_rejects_out_of_range_schedules():
+    arena, meta, _, _ = _resident_case(6, 64, 4, 252, 1)
+    with pytest.raises(KernelError):
+        TB.extend(torch.from_numpy(arena), torch.from_numpy(meta),
+                  np.array([3 * 252], np.int32), R=252, W=64)
+
+
+def test_device_store_bytes_equal_jax_arena(monkeypatch):
+    """Same uploads into the JAX arena and the port's store: same
+    offsets, same epochs, same bytes — through a reset."""
+    monkeypatch.setenv("DENTIST_TPU_ARENA_MB", "16")
+    arena = B._Arena()
+    store = TB.DeviceStore(torch.device("cpu"))
+    assert store.capacity == B._arena_capacity() == 16 << 20
+    rng = np.random.default_rng(7)
+    seqs = [rng.integers(0, 4, n).astype(np.uint8)
+            for n in (1000, 70_000, 3_000_000, 5_000_000, 6_000_000, 123)]
+    for s in seqs:
+        assert store.offset_of(s) == arena.offset_of(s)
+        assert store.epoch == arena.epoch
+        np.testing.assert_array_equal(store.array.numpy(),
+                                      np.asarray(arena.array))
+    assert store.epoch > 0, "the uploads must force a reset"
+    with pytest.raises(MemoryError):
+        store.offset_of(np.zeros(20 << 20, np.uint8))
+
+
+def test_device_store_from_seqstore():
+    from dentist_tpu.models.sequences import SeqStore
+
+    codes = np.random.default_rng(8).integers(0, 4, 5000).astype(np.uint8)
+    seqs = SeqStore(codes, np.array([2000, 3000]))
+    store = TB.DeviceStore.from_seqstore(seqs, torch.device("cpu"))
+    off = store.offset_of(seqs.codes)
+    np.testing.assert_array_equal(store.array[off : off + 5000].numpy(), codes)

@@ -1,0 +1,110 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+Skipped where there is no GPU (a CUDA kernel has no CPU or interpret
+mode); on a machine with one, run ``python -m pytest --noconftest -m cuda
+tests/test_torch_kernels_cuda.py`` (``tests/conftest.py`` imports JAX).  Inputs are seeded numpy arrays at
+small shapes; every output must be bit-equal (integer DPs).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from dentist_tpu_torch.ops import banded as K1
+from dentist_tpu_torch.ops import nw_dist as K3
+from dentist_tpu_torch.ops import nw_round as K2
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _resident(seed, W, N, R, K):
+    rng = np.random.default_rng(seed)
+    BW = K1.bw_for(R, W)
+    size = 2 * K1.RESIDENT_PAD + 4 * (R + BW)
+    store = rng.integers(0, 4, size).astype(np.uint8)
+    src = rng.integers(K1.RESIDENT_PAD, size - K1.RESIDENT_PAD - R, N)
+    meta = np.zeros((12, N), np.int32)
+    meta[0] = src
+    meta[1] = rng.integers(0, 2, N)
+    meta[2] = rng.integers(R // 2, R + 1, N)
+    meta[3] = src - W + rng.integers(-3, 4, N)
+    meta[4] = rng.integers(0, 2, N)
+    meta[5] = rng.integers(0, 2, N)
+    meta[6] = rng.integers(0, W // 2, N)
+    meta[7] = meta[6] + rng.integers(R, BW - W // 2, N)
+    meta[8] = rng.integers(R // 2, int(1.1 * R), N)
+    meta[9] = np.arange(N) % K
+    meta[10] = -K1.DIAG_UNBOUNDED
+    meta[11] = K1.DIAG_UNBOUNDED
+    meta[11, ::5] = 25
+    num_k = np.array([R, int(1.04 * R), int(0.97 * R), R][:K], np.int32)
+    return store, meta, num_k
+
+
+def test_extend_kernel_equals_plain(cuda):
+    R, W, N = 504, 256, 64
+    store, meta, num_k = _resident(1, W, N, R, 4)
+    s, m = torch.from_numpy(store).to(cuda), torch.from_numpy(meta).to(cuda)
+    n0 = K1.launches
+    got = K1.extend(s, m, num_k, R=R, W=W)
+    torch.cuda.synchronize()
+    assert K1.launches == n0 + 1
+    ref = K1.extend_reference(s, m, num_k, R=R, W=W)
+    assert torch.equal(got, ref)
+
+
+def _lanes(seed, T, RL, N):
+    rng = np.random.default_rng(seed)
+    tpl = np.zeros((T, N), np.uint8)
+    reads = np.zeros((N, RL), np.uint8)
+    t_lens = rng.integers(T // 2, T + 1, N).astype(np.int32)
+    r_lens = np.zeros(N, np.int32)
+    for n in range(N):
+        t = rng.integers(0, 4, t_lens[n]).astype(np.uint8)
+        keep = rng.random(len(t)) > 0.08
+        r = t[keep][: RL]
+        tpl[: t_lens[n], n] = t
+        reads[n, : len(r)] = r
+        r_lens[n] = len(r)
+    rows = np.arange(T + 1, dtype=np.int64)
+    cen = np.minimum(rows[:, None] * r_lens[None, :] // np.maximum(t_lens, 1),
+                     r_lens[None, :])
+    steps = np.clip(np.diff(cen, axis=0), 0, 2)
+    centers = np.concatenate([cen[:1], cen[:1] + np.cumsum(steps, axis=0)])
+    return tpl, t_lens, reads, r_lens, centers.astype(np.int32)
+
+
+@pytest.mark.parametrize("T,RL,N,lead_free", [(512, 1024, 16, -1),
+                                               (192, 384, 256, 16)])
+def test_nw_round_kernel_equals_plain(cuda, T, RL, N, lead_free):
+    args = [torch.from_numpy(a).to(cuda) for a in _lanes(2, T, RL, N)]
+    kw = dict(T=T, W=128, S=T + RL, NWIN=-(-T // 126), lead_free=lead_free)
+    n0 = K2.launches
+    got = K2.nw_round(*args, **kw)
+    torch.cuda.synchronize()
+    assert K2.launches == n0 + 1
+    ref = K2.nw_round_reference(*args, **kw)
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and torch.equal(g, r)
+
+
+def test_nw_dist_kernel_equals_plain(cuda):
+    TW, TWp, RW, NB, V = 34, 36, 48, 8, 64
+    rng = np.random.default_rng(3)
+    buf = rng.integers(0, 4, (V, 2 * TWp + NB * RW)).astype(np.uint8)
+    meta = np.concatenate([rng.integers(0, TW + 1, (V, 2)),
+                           rng.integers(0, RW + 1, (V, NB))], axis=1)
+    b = torch.from_numpy(buf).to(cuda)
+    m = torch.from_numpy(meta.astype(np.int32)).to(cuda)
+    n0 = K3.launches
+    got = K3.nw_dist_pairs(b, m, TW=TW, TWp=TWp, RW=RW, NB=NB)
+    torch.cuda.synchronize()
+    assert K3.launches == n0 + 1
+    assert torch.equal(got, K3.nw_dist_pairs_reference(b, m, TW, TWp, RW, NB))
