@@ -8,10 +8,11 @@ Phases (any failure exits non-zero and prints no result line):
 1. Device: a CUDA GPU must be present; prints the card's
    ``nvidia-smi --query-gpu=name,power.limit`` line.
 2. Build: compiles the three kernels from ``dentist_tpu_torch/csrc/``.
-3. Kernels: each kernel against its plain PyTorch version on the card,
-   on seeded inputs at the main path's shapes.  The DPs are integer, so
-   the tolerance is 0: every output must be equal.  Prints each
-   kernel's time beside its plain version's.
+3. Kernels: each kernel, in its store/unpacked mode and its 2-bit packed
+   mode (K1p, K2p full and windowed, K3p), against its plain PyTorch
+   version on the card, on seeded inputs at the main path's shapes.  The
+   DPs are integer, so the tolerance is 0: every output must be equal.
+   Prints each mode's time beside its plain version's.
 4. Main path, small: the 60 kb / 3-gap scenario of ``tests/test_e2e.py``
    through ``python -m dentist_tpu_torch pipeline``; the output FASTA,
    AGP and BED must hash to the JAX package's outputs.
@@ -22,11 +23,26 @@ Phases (any failure exits non-zero and prints no result line):
    must hash to the JAX package's outputs.
 6. Profile: ``PROFILE_CALLS`` more phase-A runs in the same process, the
    last under ``torch.profiler``; each must hash as phase 5's did.
-   Prints each run's wall seconds and the device's busy share of the
-   profiled run, by kernel and copy.
+   Prints each run's wall seconds, the device's busy share of the
+   profiled run, by kernel and copy, and the host seconds of its 2-bit
+   packing.
+7. Host windows: the 60 kb scenario through ``run_pipeline`` with the
+   process's device store built too small for it, so every extension
+   flush ships 2-bit packed host windows (K1p); the outputs must hash as
+   in phase 4.
+8. Two ranks on one card: two ``dentist_tpu_torch.dryrun`` workers on
+   ``cuda:0`` in a gloo group run the 60 kb scenario through
+   ``run_pipeline``, every dispatch split over both; rank 0's outputs
+   must hash as in phase 4, and each rank must have launched K1p, K2p
+   and K3p on its own lanes.  Then one NCCL lane gather in a one-rank
+   group on the card.
 
 The last two lines of standard output are the kernels' JSON record and
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``.  The record has one entry per kernel
+mode that a path runs, with that mode's launches and times: K1 (store
+mode) and K2p, K3p (2-bit modes) on the main path, K1p in phase 7.  K2
+and K3 run only in their 2-bit modes now; their unpacked modes are the
+oracles phase 3 holds K2p and K3p against, and are timed in its log.
 """
 
 import hashlib
@@ -93,6 +109,45 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def hold(what: str, kernel, plain, reps: int) -> dict:
+    """``kernel()`` against ``plain()`` on the card (tolerance 0); the
+    kernel's mean ms by CUDA events over ``reps`` launches, the plain
+    version's by host clock over one call."""
+    import torch
+
+    got = kernel()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = plain()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max_abs_err(got, ref)
+    if err:
+        fail(f"{what}: kernel != plain (max abs err {err})")
+    return {"err": err, "ms": cuda_ms(kernel, reps), "plain_ms": plain_ms,
+            "out": got}
+
+
+def merge(stats: dict, new: dict) -> dict:
+    """Keep the worst error and the last case's times."""
+    return {"err": max(stats.get("err", 0), new["err"]), "ms": new["ms"],
+            "plain_ms": new["plain_ms"]}
+
+
+def launch_counts() -> dict:
+    from dentist_tpu_torch.dryrun import launch_counts as counts
+
+    return counts()
+
+
+def reset_launch_counts() -> None:
+    from dentist_tpu_torch.ops import banded, nw_dist, nw_round
+
+    for mod in (banded, nw_round, nw_dist):
+        mod.launches = 0
+        mod.packed_launches = 0
 
 
 def max_abs_err(got, ref) -> int:
@@ -197,63 +252,128 @@ def nw_lanes(rng, T: int, RL: int, N: int, window: bool):
             (tpl.T, t_lens, reads, r_lens, cen.T.astype(np.int32))]
 
 
+def k1p_case(rng, R: int, N: int, bounded: bool):
+    """Host-window lanes, 2-bit packed: B windows that hold a noisy copy
+    of the A window from column W (three lanes in four) or random bases;
+    optionally identity-diagonal bounds on some lanes."""
+    import torch
+
+    from dentist_tpu_torch.ops.banded import DIAG_UNBOUNDED, bw_for
+    from dentist_tpu_torch.ops.pack2 import pack2bit
+
+    W = 256
+    BW = bw_for(R, W)
+    a = rng.integers(0, 4, (N, R)).astype(np.uint8)
+    b = rng.integers(0, 4, (N, BW)).astype(np.uint8)
+    for n in range(N):
+        if n % 4 != 3:
+            seg = a[n, : BW - W].copy()
+            noise = rng.random(len(seg)) < 0.12
+            seg[noise] = rng.integers(0, 4, int(noise.sum()))
+            b[n, W : W + len(seg)] = seg
+    meta5 = np.zeros((5, N), np.int32)
+    meta5[0] = rng.integers(R, int(1.2 * R), N)
+    meta5[1] = np.arange(N) % 8
+    meta5[2] = rng.integers(R // 2, R + 1, N)
+    meta5[3] = -DIAG_UNBOUNDED
+    meta5[4] = DIAG_UNBOUNDED
+    if bounded:
+        meta5[4, ::3] = rng.integers(20, 200, len(meta5[4, ::3]))
+        meta5[3, 1::5] = -rng.integers(20, 200, len(meta5[3, 1::5]))
+    num_k = np.round(R * np.array([1.0, 0.98, 1.02, 0.95, 1.05, 1.0, 0.9, 1.1])
+                     ).astype(np.int32)
+    chars = np.concatenate([pack2bit(a), pack2bit(b)], axis=1)
+    return torch.from_numpy(chars).cuda(), torch.from_numpy(meta5).cuda(), num_k
+
+
+def k2p_pack(args, window: bool):
+    """``nw_lanes``' tensors as K2p inputs: [template | read | steps]
+    packed rows and the (3, N) meta, or (4, N) with ``loc0`` rows for
+    windowed lanes."""
+    import torch
+
+    from dentist_tpu_torch.ops.pack2 import pack2bit
+
+    tpl, t_lens, reads, r_lens, cen = (a.cpu().numpy() for a in args)
+    steps = np.diff(cen, axis=0).astype(np.uint8).T  # already 0..2
+    chars = np.concatenate([pack2bit(np.ascontiguousarray(tpl.T)),
+                            pack2bit(reads), pack2bit(steps)], axis=1)
+    rows = [t_lens, r_lens, cen[0]]
+    if window:  # interior offsets, as the windowed dispatch ships them
+        rows.append(np.minimum(33, np.maximum(t_lens - 126, 0)))
+    meta = np.stack(rows).astype(np.int32)
+    return torch.from_numpy(chars).cuda(), torch.from_numpy(meta).cuda()
+
+
 def phase_kernels():
     import torch
 
     from dentist_tpu_torch.ops import banded, nw_dist, nw_round
+
+    from dentist_tpu_torch.ops.pack2 import pack2bit
 
     rng = np.random.default_rng(2024)
     store = banded.device_store()
     rows = []
 
     # K1 at the main path's window buckets and lane buckets
-    k1 = {"err": 0}
+    k1, k1p = {}, {}
     for R, N in ((1512, 128), (13608, 1024)):
         for bounded in (False, True):
             meta, num_k = k1_case(store, rng, R, N, bounded)
-            got = banded.extend(store.array, meta, num_k, R=R, W=256)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            ref = banded.extend_reference(store.array, meta, num_k, R=R, W=256)
-            torch.cuda.synchronize()
-            plain_ms = (time.perf_counter() - t0) * 1e3
-            err = max_abs_err(got, ref)
-            if err:
-                fail(f"K1 extend != plain at R={R} N={N} bounded={bounded}")
-            ms = cuda_ms(lambda: banded.extend(store.array, meta, num_k, R=R, W=256), 3)
-            aligned = int((got[3] > 0).sum())
+            st = hold(f"K1 extend R={R} N={N} bounded={bounded}",
+                      lambda: banded.extend(store.array, meta, num_k, R=R, W=256),
+                      lambda: banded.extend_reference(store.array, meta, num_k,
+                                                      R=R, W=256), 3)
+            aligned = int((st["out"][3] > 0).sum())
             log(f"K1 extend R={R} N={N} diag_bounds={bounded}: equal "
                 f"(tolerance 0), {aligned}/{N} lanes aligned; kernel "
-                f"{ms:.3f} ms, plain {plain_ms:.1f} ms")
-            k1 = {"err": max(k1["err"], err), "ms": ms, "plain_ms": plain_ms}
-    rows.append(("extend", "dentist_tpu_torch/csrc/extend.cu",
-                 "dentist_tpu/ops/banded.py:61", banded, k1))
+                f"{st['ms']:.3f} ms, plain {st['plain_ms']:.1f} ms")
+            k1 = merge(k1, st)
+            chars, meta5, num_k = k1p_case(rng, R, N, bounded)
+            st = hold(f"K1p extend_packed R={R} N={N} bounded={bounded}",
+                      lambda: banded.extend_packed(chars, meta5, num_k, R=R, W=256),
+                      lambda: banded.extend_packed_reference(chars, meta5, num_k,
+                                                             R=R, W=256), 3)
+            aligned = int((st["out"][3] > 0).sum())
+            log(f"K1p extend_packed R={R} N={N} diag_bounds={bounded}: equal "
+                f"(tolerance 0), {aligned}/{N} lanes aligned; kernel "
+                f"{st['ms']:.3f} ms, plain {st['plain_ms']:.1f} ms")
+            k1p = merge(k1p, st)
+    rows.append(("K1 extend", "dentist_tpu_torch/csrc/extend.cu",
+                 "dentist_tpu/ops/banded.py:62", "main", "K1", k1))
+    rows.append(("K1p extend_packed", "dentist_tpu_torch/csrc/extend.cu",
+                 "dentist_tpu/ops/banded.py:249", "host_windows", "K1p", k1p))
 
-    # K2: a full round and a windowed round
-    k2 = {"err": 0}
+    # K2 and K2p: a full round and a windowed round
+    k2p = {}
     for T, RL, N, lead_free, window in ((512, 1024, 32, -1, False),
                                         (192, 384, 2048, 16, True)):
         args = nw_lanes(rng, T, RL, N, window)
         kw = dict(T=T, W=128, S=T + RL, NWIN=-(-T // 126), lead_free=lead_free)
-        got = nw_round.nw_round(*args, **kw)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ref = nw_round.nw_round_reference(*args, **kw)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        err = max_abs_err(got, ref)
-        if err:
-            fail(f"K2 nw_round != plain at T={T} N={N}")
-        ms = cuda_ms(lambda: nw_round.nw_round(*args, **kw), 3)
+        st = hold(f"K2 nw_round T={T} N={N}",
+                  lambda: nw_round.nw_round(*args, **kw),
+                  lambda: nw_round.nw_round_reference(*args, **kw), 3)
         log(f"K2 nw_round T={T} RL={RL} N={N} lead_free={lead_free}: equal "
-            f"(tolerance 0), {int(got[6].sum())}/{N} lanes covered; kernel "
-            f"{ms:.3f} ms, plain {plain_ms:.1f} ms")
-        k2 = {"err": max(k2["err"], err), "ms": ms, "plain_ms": plain_ms}
-    rows.append(("nw_round", "dentist_tpu_torch/csrc/nw_round.cu",
-                 "dentist_tpu/ops/consensus.py:121", nw_round, k2))
+            f"(tolerance 0), {int(st['out'][6].sum())}/{N} lanes covered; "
+            f"kernel {st['ms']:.3f} ms, plain {st['plain_ms']:.1f} ms")
+        unpacked = st["out"]
+        chars, meta = k2p_pack(args, window)
+        st = hold(f"K2p nw_round_packed T={T} N={N}",
+                  lambda: nw_round.nw_round_packed(chars, meta, RL=RL, **kw),
+                  lambda: nw_round.nw_round_packed_reference(chars, meta, RL=RL,
+                                                             **kw), 3)
+        if max_abs_err(st["out"], unpacked):
+            fail(f"K2p != K2 on the same lanes at T={T} N={N}")
+        log(f"K2p nw_round_packed T={T} RL={RL} N={N} lead_free={lead_free}: "
+            f"equal to plain and to K2 (tolerance 0); kernel {st['ms']:.3f} ms, "
+            f"plain {st['plain_ms']:.1f} ms")
+        k2p = merge(k2p, st)
+    rows.append(("K2p nw_round_packed", "dentist_tpu_torch/csrc/nw_round.cu",
+                 "dentist_tpu/ops/consensus.py:491", "main", "K2p", k2p))
 
-    # K3: the polish scorer at V = 256 candidates
-    k3 = {"err": 0}
+    # K3 and K3p: the polish scorer at V = 256 candidates
+    k3p = {}
     TW, TWp, RW, V = 34, 36, 48, 256
     for NB in (8, 32):
         buf = np.zeros((V, 2 * TWp + NB * RW), np.uint8)
@@ -272,21 +392,26 @@ def phase_kernels():
                 buf[v, 2 * TWp + nb * RW : 2 * TWp + nb * RW + wl] = r
                 meta[v, 2 + nb] = wl
         b, m = torch.from_numpy(buf).cuda(), torch.from_numpy(meta).cuda()
-        got = nw_dist.nw_dist_pairs(b, m, TW, TWp, RW, NB)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ref = nw_dist.nw_dist_pairs_reference(b, m, TW, TWp, RW, NB)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        err = max_abs_err(got, ref)
-        if err:
-            fail(f"K3 nw_dist != plain at V={V} NB={NB}")
-        ms = cuda_ms(lambda: nw_dist.nw_dist_pairs(b, m, TW, TWp, RW, NB), 10)
+        st = hold(f"K3 nw_dist V={V} NB={NB}",
+                  lambda: nw_dist.nw_dist_pairs(b, m, TW, TWp, RW, NB),
+                  lambda: nw_dist.nw_dist_pairs_reference(b, m, TW, TWp, RW, NB),
+                  10)
         log(f"K3 nw_dist V={V} NB={NB}: equal (tolerance 0); kernel "
-            f"{ms:.3f} ms, plain {plain_ms:.1f} ms")
-        k3 = {"err": max(k3["err"], err), "ms": ms, "plain_ms": plain_ms}
-    rows.append(("nw_dist", "dentist_tpu_torch/csrc/nw_dist.cu",
-                 "dentist_tpu/ops/consensus.py:1935", nw_dist, k3))
+            f"{st['ms']:.3f} ms, plain {st['plain_ms']:.1f} ms")
+        unpacked = st["out"]
+        p = torch.from_numpy(pack2bit(buf)).cuda()
+        st = hold(f"K3p nw_dist_packed V={V} NB={NB}",
+                  lambda: nw_dist.nw_dist_pairs_packed(p, m, TW, TWp, RW, NB),
+                  lambda: nw_dist.nw_dist_pairs_packed_reference(p, m, TW, TWp,
+                                                                 RW, NB), 10)
+        if max_abs_err(st["out"], unpacked):
+            fail(f"K3p != K3 on the same rows at NB={NB}")
+        log(f"K3p nw_dist_packed V={V} NB={NB}: equal to plain and to K3 "
+            f"(tolerance 0); kernel {st['ms']:.3f} ms, plain "
+            f"{st['plain_ms']:.1f} ms")
+        k3p = merge(k3p, st)
+    rows.append(("K3p nw_dist_packed", "dentist_tpu_torch/csrc/nw_dist.cu",
+                 "dentist_tpu/ops/consensus.py:2065", "main", "K3p", k3p))
     return rows
 
 
@@ -336,7 +461,6 @@ def run_phase_a(d: str, asm: str, reads: str, tag: str):
 def phase_a(tmp: str) -> dict:
     import torch
 
-    from dentist_tpu_torch.ops import banded, nw_dist, nw_round
     from dentist_tpu_torch.pipeline import STAGE_SECONDS, reset_stage_seconds
     from dentist_tpu_torch.scenarios import (closed_exactly_in,
                                              phase_a_scenario, write_scenario)
@@ -346,11 +470,9 @@ def phase_a(tmp: str) -> dict:
     asm, reads = write_scenario(sc, d)
     reset_stage_seconds()
     torch.cuda.reset_peak_memory_stats()
-    for mod in (banded, nw_round, nw_dist):
-        mod.launches = 0
+    reset_launch_counts()
     result, out, wall = run_phase_a(d, asm, reads, "")
-    launches = {m.__name__.rsplit(".", 1)[1]: m.launches
-                for m in (banded, nw_round, nw_dist)}
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     n_pileups = None
     with open(os.path.join(d, "work", "pipeline.log")) as fh:
@@ -370,9 +492,12 @@ def phase_a(tmp: str) -> dict:
         if got != want:
             fail(f"3 Mb scenario: {name} sha256 {got} != JAX {want}")
     log("  FASTA, AGP and BED equal to the JAX package's (sha256)")
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"kernel {name} was not launched on the main path")
+    for kernel in ("K1", "K2", "K3"):  # each kernel, in either mode
+        if launches[kernel] + launches[kernel + "p"] <= 0:
+            fail(f"kernel {kernel} was not launched on the main path")
+    for mode in ("K2p", "K3p"):  # consensus ships packed inputs
+        if launches[mode] <= 0:
+            fail(f"{mode} was not launched on the main path")
     if result.n_closed_gaps < PHASE_A_JAX_CLOSED:
         fail(f"closed {result.n_closed_gaps} gaps, JAX closes {PHASE_A_JAX_CLOSED}")
     if exact < PHASE_A_JAX_EXACT:
@@ -389,11 +514,14 @@ def phase_profile(tmp: str, calls: int) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from dentist_tpu_torch.ops import pack2
+
     d = os.path.join(tmp, "phase_a")
     asm, reads = (os.path.join(d, f) for f in ("assembly.fasta", "reads.fasta"))
     walls = []
     for i in range(calls):
         last = i == calls - 1
+        pack2.seconds, pack2.calls = 0.0, 0
         with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
               if last else contextlib.nullcontext()) as prof:
             _, out, wall = run_phase_a(d, asm, reads, f"_profile{i}")
@@ -421,6 +549,85 @@ def phase_profile(tmp: str, calls: int) -> None:
         f"({100 * busy_us / 1e6 / walls[-1]:.2f} %)")
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
         log(f"  {us / 1e3:10.2f} ms {n:6d}x  {name[:90]}")
+    log(f"  host 2-bit packing in the profiled run: {pack2.seconds * 1e3:.1f} ms "
+        f"over {pack2.calls} calls")
+
+
+def check_e2e_hashes(d: str, what: str) -> None:
+    for name, want in E2E_SHA256.items():
+        got = sha256(os.path.join(d, name))
+        if got != want:
+            fail(f"{what}: {name} sha256 {got} != JAX {want}")
+
+
+def phase_host_windows(tmp: str) -> dict:
+    """The 60 kb scenario with a device store too small for it: every
+    K1 flush takes the 2-bit host-window path (K1p)."""
+    from dentist_tpu_torch.ops import banded
+    from dentist_tpu_torch.pipeline import PipelineConfig, run_pipeline
+
+    asm, reads = (os.path.join(tmp, "e2e", f) for f in ("assembly.fasta",
+                                                        "reads.fasta"))
+    d = os.path.join(tmp, "e2e_host_windows")
+    os.makedirs(d)
+    banded.reset_device_store(capacity=1 << 20)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        run_pipeline(asm, reads, os.path.join(d, "out.fasta"),
+                     PipelineConfig(read_coverage=20.0))
+    finally:
+        banded.reset_device_store()
+    launches = launch_counts()
+    check_e2e_hashes(d, "60 kb scenario on host windows")
+    log(f"host windows, 60 kb / 3 gaps, 1 MiB device store: FASTA, AGP and "
+        f"BED equal to the JAX package's (sha256), "
+        f"{time.perf_counter() - t0:.1f} s; kernel launches {json.dumps(launches)}")
+    if launches["K1"] != 0 or launches["K1p"] <= 0:
+        fail(f"host-window phase: K1 flushes did not all take K1p: {launches}")
+    return launches
+
+
+def phase_two_ranks(tmp: str) -> None:
+    """Two ranks on the one card in a gloo group (NCCL refuses two ranks
+    on one card), then one NCCL lane gather in a one-rank group."""
+    import torch
+    import torch.distributed as dist
+
+    from dentist_tpu_torch.dryrun import free_port, run_ranks
+    from dentist_tpu_torch.parallel.dp import DPGroup, gather_lanes
+    from dentist_tpu_torch.pipeline import PipelineConfig, run_pipeline
+
+    asm, reads = (os.path.join(tmp, "e2e", f) for f in ("assembly.fasta",
+                                                        "reads.fasta"))
+    d = os.path.join(tmp, "e2e_two_ranks")
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    ranks = run_ranks(run_pipeline, (asm, reads, os.path.join(d, "out.fasta"),
+                                     PipelineConfig(read_coverage=20.0)), {},
+                      n=2, devices=["cuda:0", "cuda:0"], backend="gloo",
+                      pass_group=False, threads=4)
+    check_e2e_hashes(d, "60 kb scenario on two ranks")
+    for r in ranks:
+        log(f"two ranks on one card, rank {r['rank']}: kernel launches "
+            f"{json.dumps(r['launches'])}")
+        for mode in ("K1p", "K2p", "K3p"):
+            if r["launches"][mode] <= 0:
+                fail(f"rank {r['rank']} launched no {mode} on its lanes")
+    log(f"two ranks on one card, 60 kb / 3 gaps: rank 0's FASTA, AGP and BED "
+        f"equal to the JAX package's (sha256), {time.perf_counter() - t0:.1f} s")
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        x = torch.arange(24, dtype=torch.int32, device="cuda").reshape(2, 3, 4)
+        got = gather_lanes(x, DPGroup(0, 1, "nccl"), 1)
+        torch.cuda.synchronize()
+        if got.device.type != "cuda" or not torch.equal(got, x):
+            fail("NCCL lane gather in a one-rank group != its input")
+    finally:
+        dist.destroy_process_group()
+    log("NCCL lane gather, one-rank group on the card: equal to its input")
 
 
 def main() -> None:
@@ -463,12 +670,19 @@ def main() -> None:
         launches = phase_a(tmp)
         # 6. where the time goes in later calls
         phase_profile(tmp, PROFILE_CALLS)
+        # 7. host-window path on the card
+        host_windows = phase_host_windows(tmp)
+        # 8. two ranks on the one card
+        phase_two_ranks(tmp)
 
+    # each mode's launches in the run that drives it: phase 5 (the main
+    # path) for K1, K2p and K3p, phase 7 for K1p
+    runs = {"main": launches, "host_windows": host_windows}
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
-                "launches": launches[mod.__name__.rsplit(".", 1)[1]],
+                "launches": runs[run][mode],
                 "max_abs_err": stats["err"], "ms": stats["ms"],
                 "plain_ms": stats["plain_ms"]}
-               for name, src, rep, mod, stats in rows]
+               for name, src, rep, run, mode, stats in rows]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,6 +4,12 @@ The command line of :mod:`dentist_tpu.cli` (its parser, prefix matching,
 ``--config`` files and log levels) with the ``pipeline`` sub-command run
 by the port on the GPU.  The other sub-commands are not ported yet and
 exit with an error.
+
+On several GPUs, start one process per card with
+``DENTIST_TPU_COORDINATOR=host:port`` (rank 0's address),
+``DENTIST_TPU_NUM_PROCESSES`` and ``DENTIST_TPU_PROCESS_ID`` set: each
+process takes card ``rank mod (cards on its host)``, the ranks join an
+NCCL group, and rank 0 writes the output.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ from dentist_tpu.config import apply_config, load_config
 from dentist_tpu.utils.log import set_log_level
 
 from .device import set_device
+from .parallel.dp import rank_device
 
 __all__ = ["main"]
 
@@ -47,7 +54,7 @@ def main(argv=None) -> int:
                      positional)
     if args.revert:
         raise SystemExit("--revert is not supported by dentist_tpu_torch yet")
-    set_device("cuda")
+    set_device(rank_device())
 
     from .pipeline import PipelineConfig, run_pipeline
 

@@ -2,10 +2,15 @@
 
 The sources in ``csrc/*.cu`` have plain C entry points (no PyTorch
 headers), so one ``nvcc`` call builds them in seconds into one shared
-library under ``_build/``, named by a hash of the sources and flags: a
-changed source builds anew, an unchanged one loads the existing file.
-The library is loaded with ``ctypes``; every entry point takes device
-pointers, ints and the CUDA stream, and returns ``cudaGetLastError()``.
+library under ``_build/``, named by a hash of the sources, their headers
+(``csrc/*.cuh``) and the flags: a changed source builds anew, an
+unchanged one loads the existing file.  Ranks of a process group that
+reach their first launch together build once: the build runs under an
+exclusive lock on a file beside the library, into a temporary file that
+is renamed into place, and a rank that waited on the lock loads what
+the first one built.  The library is loaded with ``ctypes``; every entry
+point takes device pointers, ints and the CUDA stream, and returns
+``cudaGetLastError()``.
 
 Nothing here runs at import time: the first kernel launch builds.
 """
@@ -13,6 +18,7 @@ Nothing here runs at import time: the first kernel launch builds.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -23,8 +29,8 @@ from pathlib import Path
 
 from .errors import KernelError
 
-__all__ = ["library", "kernel_fn", "check", "launch_lock", "build_seconds",
-           "build_log"]
+__all__ = ["library", "build_once", "kernel_fn", "check", "launch_lock",
+           "build_seconds", "build_log"]
 
 _HERE = Path(__file__).resolve().parent
 _SRC = _HERE / "csrc"
@@ -64,13 +70,13 @@ def library() -> ctypes.CDLL:
             return _lib
         sources = sorted(_SRC.glob("*.cu"))
         h = hashlib.sha256(" ".join(_FLAGS).encode())
-        for s in sources:
+        for s in sorted(_SRC.glob("*.cu*")):
             h.update(s.name.encode())
             h.update(s.read_bytes())
         so = _OUT / f"libdentist_kernels_{h.hexdigest()[:16]}.so"
-        if not so.exists():
-            _OUT.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
+
+        def nvcc(tmp: Path) -> None:
+            global build_seconds, build_log
             t0 = time.perf_counter()
             proc = subprocess.run(
                 [_nvcc(), *_FLAGS, "-o", str(tmp), *map(str, sources)],
@@ -80,9 +86,35 @@ def library() -> ctypes.CDLL:
             if proc.returncode != 0:
                 raise KernelError(f"nvcc failed ({proc.returncode}):\n"
                                   f"{build_log}")
-            os.replace(tmp, so)
+
+        if not so.exists():
+            build_once(so, nvcc)
         _lib = ctypes.CDLL(str(so))
         return _lib
+
+
+def build_once(target: Path, build) -> bool:
+    """Make ``target`` exist, built at most once by all the processes
+    that call this together: under an exclusive ``flock`` on
+    ``<target>.lock``, ``build(tmp)`` writes a temporary file that is
+    renamed onto ``target``, unless ``target`` appeared while this call
+    waited for the lock.  Returns whether this call built it; an error
+    of ``build`` propagates and leaves ``target`` absent."""
+    target.parent.mkdir(parents=True, exist_ok=True)
+    with open(f"{target}.lock", "w") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            if target.exists():
+                return False
+            tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
+            try:
+                build(tmp)
+                os.replace(tmp, target)
+            finally:
+                tmp.unlink(missing_ok=True)
+            return True
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
 
 
 def kernel_fn(name: str, n_ptr: int, n_int: int):

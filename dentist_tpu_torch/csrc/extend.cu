@@ -22,9 +22,18 @@
 // complement, zero outside [c_lo, c_hi) and past a_len), so the host
 // window gather and the TPU's chunked B-window refill disappear.  Lanes
 // run in parallel across the SMs; the row loop is the latency chain.
+//
+// K1p, the packed mode (kPacked), replaces _extend_scan_v3_packed and
+// _extend_scan_v3_packed2 (banded.py:249, :519) with their _unpack2bit:
+// each lane's host-assembled A window (R chars) and B window (BW chars)
+// arrive as one 2-bit packed row, and each thread decodes the characters
+// it reads through pack2.cuh; the five per-lane ints are meta5 rows
+// b_len, lane_k, a_len, diag_lo, diag_hi.  The DP loop is the same code.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "pack2.cuh"
 
 namespace {
 
@@ -48,9 +57,10 @@ __device__ __forceinline__ long long clamp_start(long long s, long long size,
   return s;
 }
 
+template <bool kPacked>
 __global__ void extend_kernel(const uint8_t* __restrict__ store,
                               long long store_len,
-                              const int* __restrict__ meta,  // (12, N)
+                              const int* __restrict__ meta,  // (12 | 5, N)
                               const int* __restrict__ num_k,  // (K,)
                               int N, int R, int W, int BW,
                               int* __restrict__ out) {  // (4 + R/126, N)
@@ -65,18 +75,33 @@ __global__ void extend_kernel(const uint8_t* __restrict__ store,
   const int warp = p >> 5;
   const int nwarp = W >> 5;
 
-  const long long a_start = clamp_start(meta[0 * N + n], R, store_len);
-  const int a_rev = meta[1 * N + n];
-  const int a_len = meta[2 * N + n];
-  const long long b_start = clamp_start(meta[3 * N + n], BW, store_len);
-  const int b_rev = meta[4 * N + n];
-  const int b_flip = meta[5 * N + n];
-  const int c_lo = meta[6 * N + n];
-  const int c_hi = meta[7 * N + n];
-  const int b_len = meta[8 * N + n];
-  const int num = num_k[meta[9 * N + n]];
-  const int diag_lo = meta[10 * N + n];
-  const int diag_hi = meta[11 * N + n];
+  // store mode: 12 coordinates into the store; packed mode: the lane's
+  // row of [A window | B window] codes, the whole B window valid
+  long long a_start = 0, b_start = 0;
+  int a_rev = 0, b_rev = 0, b_flip = 0, c_lo = 0, c_hi = BW;
+  int a_len, b_len, num, diag_lo, diag_hi;
+  const uint8_t* row = nullptr;
+  if constexpr (kPacked) {
+    b_len = meta[0 * N + n];
+    num = num_k[meta[1 * N + n]];
+    a_len = meta[2 * N + n];
+    diag_lo = meta[3 * N + n];
+    diag_hi = meta[4 * N + n];
+    row = store + (size_t)n * ((R + BW) / 4);
+  } else {
+    a_start = clamp_start(meta[0 * N + n], R, store_len);
+    a_rev = meta[1 * N + n];
+    a_len = meta[2 * N + n];
+    b_start = clamp_start(meta[3 * N + n], BW, store_len);
+    b_rev = meta[4 * N + n];
+    b_flip = meta[5 * N + n];
+    c_lo = meta[6 * N + n];
+    c_hi = meta[7 * N + n];
+    b_len = meta[8 * N + n];
+    num = num_k[meta[9 * N + n]];
+    diag_lo = meta[10 * N + n];
+    diag_hi = meta[11 * N + n];
+  }
 
   // row 0: j = p - W/2
   int off_prev = -(W / 2);
@@ -104,13 +129,21 @@ __global__ void extend_kernel(const uint8_t* __restrict__ store,
 
     // A character of row r, B character of band cell p
     const int ai = r - 1;  // < a_len inside the loop
-    const int a_ch = store[a_start + (a_rev ? (R - 1 - ai) : ai)];
+    int a_ch;
+    if constexpr (kPacked)
+      a_ch = code2(row, ai);
+    else
+      a_ch = store[a_start + (a_rev ? (R - 1 - ai) : ai)];
     const int c = off + p - 1 + W;
     int b_ch = 0;
     if (c >= c_lo && c < c_hi && c >= 0 && c < BW) {
-      uint8_t v = store[b_start + (b_rev ? (BW - 1 - c) : c)];
-      if (b_flip) v = (uint8_t)(3 - v);
-      b_ch = v;
+      if constexpr (kPacked) {
+        b_ch = code2(row, R + c);
+      } else {
+        uint8_t v = store[b_start + (b_rev ? (BW - 1 - c) : c)];
+        if (b_flip) v = (uint8_t)(3 - v);
+        b_ch = v;
+      }
     }
     const int sub = a_ch != b_ch;
     const int j = off + p;
@@ -178,8 +211,19 @@ extern "C" int dentist_extend(const void* store, const void* meta,
                               const void* num_k, void* out, int store_len,
                               int N, int R, int W, int BW, void* stream) {
   const size_t smem = (2 * W + 2 * (W / 32)) * sizeof(int);
-  extend_kernel<<<N, W, smem, (cudaStream_t)stream>>>(
+  extend_kernel<false><<<N, W, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)store, store_len, (const int*)meta, (const int*)num_k,
       N, R, W, BW, (int*)out);
+  return (int)cudaGetLastError();
+}
+
+// K1p: chars (N, (R + BW) / 4) packed rows, meta5 (5, N)
+extern "C" int dentist_extend_packed(const void* chars, const void* meta5,
+                                     const void* num_k, void* out, int N,
+                                     int R, int W, int BW, void* stream) {
+  const size_t smem = (2 * W + 2 * (W / 32)) * sizeof(int);
+  extend_kernel<true><<<N, W, smem, (cudaStream_t)stream>>>(
+      (const uint8_t*)chars, (long long)N * ((R + BW) / 4),
+      (const int*)meta5, (const int*)num_k, N, R, W, BW, (int*)out);
   return (int)cudaGetLastError();
 }

@@ -18,16 +18,25 @@
 // result, so the loop stops there.  Neighbouring threads score the same
 // candidate against neighbouring segments, so they share the template
 // window through the cache.  Reads up to 127 chars are accepted.
+//
+// K3p, the packed mode (kPacked), replaces _nw_dist_pair_packed
+// (consensus.py:2065) with its _unpack2bit: a candidate's [base window |
+// edited window | NB read segments] arrive as one 2-bit packed row, and
+// each thread decodes its template and read characters through
+// pack2.cuh.  The DP is the same code.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "pack2.cuh"
 
 namespace {
 
 constexpr int kInf = 1 << 28;
 constexpr int kRwMax = 127;
 
-__global__ void nw_dist_kernel(const uint8_t* __restrict__ buf,  // (V, L)
+template <bool kPacked>
+__global__ void nw_dist_kernel(const uint8_t* __restrict__ buf,  // (V, L | L/4)
                                const int* __restrict__ meta,     // (V, 2+NB)
                                int* __restrict__ out,            // (2, V, NB)
                                int V, int TW, int TWp, int RW, int NB) {
@@ -38,21 +47,25 @@ __global__ void nw_dist_kernel(const uint8_t* __restrict__ buf,  // (V, L)
   const int v = (int)((g / NB) % V);
   const int nb = (int)(g % NB);
   const int L = 2 * TWp + NB * RW;
-  const uint8_t* row = buf + (size_t)v * L;
-  const uint8_t* tpl = row + half * TWp;
-  const uint8_t* rd = row + 2 * TWp + nb * RW;
+  const uint8_t* row = buf + (size_t)v * (kPacked ? L / 4 : L);
+  const int t0 = half * TWp;              // template offset in the row
+  const int r0 = 2 * TWp + nb * RW;       // read segment offset in the row
+  auto ch = [&](int k) {
+    if constexpr (kPacked) return code2(row, k);
+    else return row[k] & 3;
+  };
   const int tl = meta[(size_t)v * (2 + NB) + half];
   const int rl = meta[(size_t)v * (2 + NB) + 2 + nb];
 
   uint8_t r[kRwMax];
   int D[kRwMax + 1];
-  for (int j = 0; j < RW; ++j) r[j] = rd[j] & 3;
+  for (int j = 0; j < RW; ++j) r[j] = (uint8_t)ch(r0 + j);
   for (int j = 0; j <= RW; ++j) D[j] = j <= rl ? j : kInf;
 
   int best = kInf;
   const int rows = tl < TW ? tl : TW;
   for (int i = 1; i <= rows; ++i) {
-    const int t_ch = tpl[i - 1] & 3;
+    const int t_ch = ch(t0 + i - 1);
     int old_left = kInf;  // D of the previous row at j - 1
     int run = kInf;       // min over q <= j of tmp[q] - q
     for (int j = 0; j <= RW; ++j) {
@@ -78,7 +91,19 @@ extern "C" int dentist_nw_dist(const void* buf, const void* meta, void* out,
   const long long total = 2LL * V * NB;
   const int threads = 128;
   const long long blocks = (total + threads - 1) / threads;
-  nw_dist_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+  nw_dist_kernel<false><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)buf, (const int*)meta, (int*)out, V, TW, TWp, RW, NB);
+  return (int)cudaGetLastError();
+}
+
+// K3p: chars (V, (2 TWp + NB RW) / 4) packed rows
+extern "C" int dentist_nw_dist_packed(const void* chars, const void* meta,
+                                      void* out, int V, int TW, int TWp,
+                                      int RW, int NB, void* stream) {
+  const long long total = 2LL * V * NB;
+  const int threads = 128;
+  const long long blocks = (total + threads - 1) / threads;
+  nw_dist_kernel<true><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)chars, (const int*)meta, (int*)out, V, TW, TWp, RW, NB);
   return (int)cudaGetLastError();
 }

@@ -24,9 +24,19 @@
 // is written by one thread only, so the JAX scatter-min / max / add
 // reductions become plain read-modify-writes and no atomics are needed
 // (CUDA has no int8 atomics).  Lanes run in parallel across the SMs.
+//
+// K2p, the packed mode (kPacked), replaces _nw_round_packed
+// (consensus.py:491) and the 2-bit input of _nw_window_round (:887): a
+// lane's [template T | read RL | band-center steps T] arrive as one 2-bit
+// packed row and meta holds t_lens, read_lens and the first band center
+// as rows.  Every thread decodes its characters through pack2.cuh and
+// rebuilds the band centers as the running sum of the steps, row by row;
+// thread 0 also stores them in a per-lane scratch row for its traceback.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "pack2.cuh"
 
 namespace {
 
@@ -43,12 +53,17 @@ __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
 }
 
+// store mode: tpl (N, T), t_lens (N,), reads (N, RL), read_lens (N,) and
+// centers (N, T+1) as given.  Packed mode: tpl is the (N, (2T + RL)/4)
+// packed rows, t_lens the (3 | 4, N) meta rows, reads and read_lens
+// unused, centers a scratch row per lane that the kernel fills.
+template <bool kPacked>
 __global__ void nw_round_kernel(
-    const uint8_t* __restrict__ tpl,      // (N, T)
-    const int* __restrict__ t_lens,       // (N,)
-    const uint8_t* __restrict__ reads,    // (N, RL)
-    const int* __restrict__ read_lens,    // (N,)
-    const int* __restrict__ centers,      // (N, T+1)
+    const uint8_t* __restrict__ tpl,
+    const int* __restrict__ t_lens,
+    const uint8_t* __restrict__ reads,
+    const int* __restrict__ read_lens,
+    int* __restrict__ centers,
     uint8_t* __restrict__ moves,          // (N, T, W) scratch
     int8_t* __restrict__ sym,             // (N, T)
     int8_t* __restrict__ ins,             // (N, T+1, 4)
@@ -67,17 +82,28 @@ __global__ void nw_round_kernel(
   const int p = threadIdx.x;
   const int lane = p & 31;
   const int warp = p >> 5;
-  const int rl = read_lens[n];
+  const int rl = kPacked ? t_lens[N + n] : read_lens[n];
   const int tl = t_lens[n];
   const int rl_clip = max(rl - W / 2, 0);
-  const int* cen = centers + (size_t)n * (T + 1);
-  const uint8_t* rd = reads + (size_t)n * RL;
-  const uint8_t* tp = tpl + (size_t)n * T;
+  int* cen = centers + (size_t)n * (T + 1);
+  const uint8_t* row = tpl + (size_t)n * ((2 * T + RL) / 4);
+  const uint8_t* rd = kPacked ? nullptr : reads + (size_t)n * RL;
+  const uint8_t* tp = kPacked ? nullptr : tpl + (size_t)n * T;
   uint8_t* mv_lane = moves + (size_t)n * T * W;
 
   auto off_from = [&](int c) { return min(max(c - W / 2, -(W / 2)), rl_clip); };
+  auto t_char = [&](int k) {
+    if constexpr (kPacked) return code2(row, k);
+    else return tp[k] & 3;
+  };
+  auto r_char = [&](int k) {
+    if constexpr (kPacked) return code2(row, T + k);
+    else return rd[k] & 3;
+  };
 
-  int off_prev = off_from(cen[0]);
+  int c_run = kPacked ? t_lens[2 * N + n] : cen[0];
+  if (kPacked && p == 0) cen[0] = c_run;
+  int off_prev = off_from(c_run);
   {
     const int j0 = off_prev + p;
     const int d_init = lead_free < 0 ? 0 : max(j0 - lead_free, 0);
@@ -92,15 +118,21 @@ __global__ void nw_round_kernel(
   for (int i = 1; i <= T; ++i) {
     const int* dprev = dbuf + ((i - 1) & 1) * W;
     int* dcur = dbuf + (i & 1) * W;
-    const int off = off_from(cen[i]);
+    if constexpr (kPacked) {
+      c_run += code2(row, T + RL + i - 1);
+      if (p == 0) cen[i] = c_run;  // read back by this thread's traceback
+    } else {
+      c_run = cen[i];
+    }
+    const int off = off_from(c_run);
     const int s = off - off_prev;
     off_prev = off;
     const int ei = p + s;
     const int E = (ei >= 0 && ei < W) ? dprev[ei] : kInf;
     const int E1 = (ei - 1 >= 0 && ei - 1 < W) ? dprev[ei - 1] : kInf;
 
-    const int t_ch = tp[i - 1] & 3;
-    const int r_ch = rd[clampi(off - 1 + p, 0, RL - 1)] & 3;
+    const int t_ch = t_char(i - 1);
+    const int r_ch = r_char(clampi(off - 1 + p, 0, RL - 1));
     const int j = off + p;
     const int sub = r_ch != t_ch;
     const int diag = j >= 1 ? E1 + sub : kInf;
@@ -200,10 +232,26 @@ extern "C" int dentist_nw_round(
     void* covered, int N, int T, int RL, int W, int S, int NWIN,
     int lead_free, int trace, void* stream) {
   const size_t smem = (2 * W + W / 32 + 2) * sizeof(int);
-  nw_round_kernel<<<N, W, smem, (cudaStream_t)stream>>>(
+  nw_round_kernel<false><<<N, W, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)tpl, (const int*)t_lens, (const uint8_t*)reads,
-      (const int*)read_lens, (const int*)centers, (uint8_t*)moves,
+      (const int*)read_lens, (int*)centers, (uint8_t*)moves,
       (int8_t*)sym, (int8_t*)ins, (int*)jpath, (int*)spans, (int*)diffs,
       (int*)win, (bool*)covered, N, T, RL, W, S, NWIN, lead_free, trace);
+  return (int)cudaGetLastError();
+}
+
+// K2p: chars (N, (2T + RL) / 4) packed rows, meta (3 | 4, N) with rows
+// t_lens, read_lens, first band center; centers (N, T+1) int32 scratch
+extern "C" int dentist_nw_round_packed(
+    const void* chars, const void* meta, void* centers, void* moves,
+    void* sym, void* ins, void* jpath, void* spans, void* diffs, void* win,
+    void* covered, int N, int T, int RL, int W, int S, int NWIN,
+    int lead_free, int trace, void* stream) {
+  const size_t smem = (2 * W + W / 32 + 2) * sizeof(int);
+  nw_round_kernel<true><<<N, W, smem, (cudaStream_t)stream>>>(
+      (const uint8_t*)chars, (const int*)meta, nullptr, nullptr,
+      (int*)centers, (uint8_t*)moves, (int8_t*)sym, (int8_t*)ins,
+      (int*)jpath, (int*)spans, (int*)diffs, (int*)win, (bool*)covered, N,
+      T, RL, W, S, NWIN, lead_free, trace);
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,18 @@
+// The 2-bit decode shared by the packed modes of K1, K2 and K3.
+//
+// Replaces dentist_tpu/ops/banded.py:_unpack2bit, which unpacks a whole
+// (N, X/4) block into an (N, X) array before the DP runs.  Here each
+// thread decodes only the characters it reads, at load time, so the
+// unpacked array never exists: four codes per byte, the first in the
+// high bits (the Dazzler Compress_Read order), as
+// dentist_tpu_torch/ops/pack2.py:pack2bit writes them.
+
+#pragma once
+
+#include <stdint.h>
+
+// code i of the packed row p: (p[i >> 2] >> (6 - 2 (i & 3))) & 3
+__device__ __forceinline__ int code2(const uint8_t* __restrict__ p,
+                                     long long i) {
+  return (p[i >> 2] >> (6 - 2 * (int)(i & 3))) & 3;
+}

@@ -31,6 +31,7 @@ def set_device(device) -> torch.device:
     if dev.type == "cuda":
         first = require_cuda()
         dev = first if dev.index is None else dev
+        torch.cuda.set_device(dev)  # NCCL collectives run on this card
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     _DEVICE = dev

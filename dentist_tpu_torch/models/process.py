@@ -456,13 +456,17 @@ def process_pile_ups(
     repeats: Region,
     cfg: ProcessConfig | None = None,
     batch: tuple[int, int] | None = None,
+    group=None,
 ) -> list[Insertion]:
     """Process pile-ups (optionally a ``--batch from..to`` slice).
 
     Consensus runs BATCHED across pile-ups — one set of bucketed device
     dispatches per realign round serves every pile-up (the reference
     thread-parallelizes pile-ups, ``processPileUps/package.d:146-159``).
-    On splice
+    With a data-parallel ``group`` consensus lanes split over its ranks
+    with gathered results — the equivalent of the reference's
+    ``--batch`` cluster slices + ``merge-insertions``
+    (``snakemake/Snakefile:1315-1358``).  On splice
     failure a pile-up's consensus is retried with the next QV-ranked
     reference-read candidate as the template
     (``findReferenceReadCandidates`` + retry, ``package.d:518-619``);
@@ -506,7 +510,7 @@ def process_pile_ups(
                 [prepared[k].cropped for k in pending],
                 rounds=cfg.consensus_rounds, W=cfg.band_width,
                 template_idxs=[tmpl_idx[k] for k in pending],
-                tie_policy=cfg.consensus_tie_policy,
+                tie_policy=cfg.consensus_tie_policy, group=group,
             )
         except DEVICE_ERRORS:
             raise

@@ -4,10 +4,12 @@ Port of ``dentist_tpu/ops/aligner.py``: the host driver is the same —
 window buckets, lane buckets, slope-binned flushes of ≤ 8 band schedules,
 batch size and flush order are unchanged, because a lane's band schedule
 is its bin's mean slope and the records therefore depend on which jobs
-share a flush.  Only the dispatch differs: every flush goes through the
-one K1 entry point (:func:`dentist_tpu_torch.ops.banded.extend`), with
-windows either gathered from the resident device store or assembled on
-the host into a scratch buffer.
+share a flush.  A flush runs K1 on windows gathered from the resident
+device store (:func:`dentist_tpu_torch.ops.banded.extend`) or, when the
+stores do not fit it or under a data-parallel group, on windows the
+host assembled and 2-bit packed (K1p,
+:func:`dentist_tpu_torch.ops.banded.extend_batch_packed`, whose lanes
+split over the group's ranks).
 
 The daligner/damapper/datander replacement (SURVEY §2.3).  One engine,
 three drivers:
@@ -45,7 +47,7 @@ from dentist_tpu.ops.seeding import (KmerIndex, SeedCandidate, cluster_seeds,
 from dentist_tpu.utils.log import log_json
 from dentist_tpu.utils.prof import prof, prof_add
 
-from ..device import get_device
+from ..parallel.dp import dispatch_workers, pad_lanes
 
 __all__ = ["AlignerConfig", "Aligner", "align_store_pair"]
 
@@ -156,16 +158,21 @@ class Aligner:
     """Aligns query sequences against an indexed target store."""
 
     def __init__(self, index: KmerIndex, target_codes: np.ndarray,
-                 config: AlignerConfig | None = None, query_store=None):
+                 config: AlignerConfig | None = None, query_store=None,
+                 group=None):
         self.index = index
         self.target_codes = target_codes
         self.cfg = config or AlignerConfig()
+        #: :class:`~dentist_tpu_torch.parallel.dp.DPGroup` (or None): every
+        #: flush's lanes split over its ranks, results gathered
+        self.group = group
         #: (codes, offsets) of the flat query store: enables the
         #: device-resident dispatch path, where extension windows are
         #: gathered from the device store instead of being assembled on
-        #: the host per lane.  Falls back to host windows without it.
+        #: the host per lane.  Falls back to host windows without it and
+        #: under a group (each rank ships its own lanes).
         self._query_store = query_store
-        self._use_resident = query_store is not None
+        self._use_resident = query_store is not None and group is None
         #: pending jobs keyed by (bucket, slope_bin)
         self._pending: dict[tuple[int, int], list[_Job]] = {}
         self._inflight: list[tuple[list[_Job], object]] = []  # async dispatches
@@ -175,7 +182,8 @@ class Aligner:
         #: and the main thread is the clustering bottleneck
         from concurrent.futures import ThreadPoolExecutor
 
-        self._dispatch_pool = ThreadPoolExecutor(max_workers=2)
+        self._dispatch_pool = ThreadPoolExecutor(
+            max_workers=dispatch_workers(2))
 
     # ------------------------------------------------------------------
     def _target_seq(self, a_id: int) -> np.ndarray:
@@ -360,6 +368,7 @@ class Aligner:
         N = next((lb for lb in _LANE_BUCKETS if len(jobs) <= lb),
                  -(-len(jobs) // _LANE_BUCKETS[-1]) * _LANE_BUCKETS[-1])
         prof_add(f"map.flush.R{R}.N{N}", hits=len(jobs))
+        N = pad_lanes(N, self.group)  # lanes split evenly over the ranks
         lane_k = np.concatenate([lane_k, np.zeros(N - len(jobs), dtype=np.int32)])
         # window assembly + device dispatch off-thread: the main thread
         # is the clustering bottleneck and the device queue is async
@@ -368,7 +377,7 @@ class Aligner:
         self._inflight.append((jobs, out))
 
     def _build_and_dispatch(self, jobs, lane_k, num_k, R, N, W):
-        from .banded import DIAG_UNBOUNDED, bw_for, extend, host_window_meta
+        from .banded import DIAG_UNBOUNDED, bw_for, extend_batch_packed
 
         if self._use_resident:
             try:
@@ -404,15 +413,12 @@ class Aligner:
                 rev = j.b_chars[max(0, j.b_anchor - (BW - W)) : j.b_anchor + W][::-1]
                 lead = W - min(W, len(j.b_chars) - j.b_anchor)
                 b_win[n, lead : lead + len(rev)] = rev
-        # the windows go to the device as one scratch buffer that the
-        # kernel reads through host-window coordinates; the launch is
-        # asynchronous, so the device computes while the host seeds more
-        dev = get_device()
-        scratch = torch.from_numpy(
-            np.concatenate([a_win.reshape(-1), b_win.reshape(-1)])).to(dev)
-        meta = host_window_meta(a_lens, b_lens, lane_k, diag_lo, diag_hi,
-                                N, R, BW)
-        return extend(scratch, torch.from_numpy(meta).to(dev), num_k, R=R, W=W)
+        # the windows go to the device 2-bit packed, one row per lane;
+        # the launch is asynchronous, so the device computes while the
+        # host seeds more (under a group the gather waits for it)
+        return extend_batch_packed(a_win, b_win, a_lens, b_lens, num_k,
+                                   lane_k, W=W, diag_lo=diag_lo,
+                                   diag_hi=diag_hi, group=self.group)
 
     def _dispatch_resident(self, jobs, lane_k, num_k, R, N, W):
         """Metadata-only dispatch against the resident device store.
@@ -844,6 +850,7 @@ def align_store_pair(
     mask_intervals: np.ndarray | None = None,
     self_alignment: bool = False,
     query_store=None,
+    group=None,
 ) -> LocalAlignmentSet:
     """Align every query against the target store; returns sorted LAs.
 
@@ -855,6 +862,10 @@ def align_store_pair(
     those attributes) of the flat store the query ids index into; it
     enables the device-resident dispatch path.  Without it the store is
     derived from ``queries`` when the ids are the default 1..n.
+
+    ``group`` (a :class:`~dentist_tpu_torch.parallel.dp.DPGroup`) splits
+    every extension flush's lanes over its ranks; every rank returns the
+    same records, equal to the single-device ones.
     """
     cfg = config or AlignerConfig()
     index = _cached_index(target_codes, target_offsets, target_lengths, cfg.k,
@@ -863,7 +874,8 @@ def align_store_pair(
         query_store = (query_store.codes, query_store.offsets)
     if query_store is None and query_ids is None:
         query_store = _flat_query_store(queries)
-    aligner = Aligner(index, target_codes, cfg, query_store=query_store)
+    aligner = Aligner(index, target_codes, cfg, query_store=query_store,
+                      group=group)
     ids = query_ids or list(range(1, len(queries) + 1))
     aligner.align_queries([np.asarray(q, dtype=np.uint8) for q in queries], ids,
                           exclude_identity=self_alignment)

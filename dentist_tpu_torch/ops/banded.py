@@ -1,17 +1,22 @@
 """K1, the banded extension DP, and the device sequence store.
 
-Port of ``dentist_tpu/ops/banded.py``.  One entry point, :func:`extend`,
-serves both dispatch modes of the aligner: lanes whose windows lie in the
-resident :class:`DeviceStore` and lanes whose windows the host assembled
-into a scratch buffer (:func:`host_window_meta`).  Either way a lane is
-described by twelve coordinates (``meta12``) into one uint8 buffer, and
-the kernel (``csrc/extend.cu``) gathers, reverses, complements and masks
-the characters itself.
+Port of ``dentist_tpu/ops/banded.py``.  The kernel (``csrc/extend.cu``)
+has two modes, one per dispatch mode of the aligner:
 
-:func:`extend_reference` is the plain PyTorch version of the same DP: a
-Python loop over rows, vectorized over lanes and band cells.  The
-wrapper takes it for CPU tensors only; a CUDA tensor launches the kernel
-or raises.
+- :func:`extend` (K1): lanes whose windows lie in the resident
+  :class:`DeviceStore`, each described by twelve coordinates
+  (``meta12``); the kernel gathers, reverses, complements and masks the
+  characters itself.
+- :func:`extend_packed` (K1p): windows the host assembled, shipped as
+  one 2-bit packed row per lane (:func:`extend_batch_packed`, which also
+  splits the lanes over the ranks of a data-parallel group and gathers
+  their results).
+
+:func:`extend_reference` is the plain PyTorch version of the DP: a
+Python loop over rows, vectorized over lanes and band cells;
+:func:`extend_packed_reference` unpacks and calls it.  The wrappers
+take them for CPU tensors only; a CUDA tensor launches the kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -25,10 +30,14 @@ import torch
 from .. import _build
 from ..device import get_device
 from ..errors import KernelError
+from ..parallel.dp import gather_lanes, local_lanes
+from .pack2 import pack2bit, unpack2bit
 
-__all__ = ["extend", "extend_reference", "unpack_extension", "bw_for",
-           "DeviceStore", "device_store", "host_window_meta",
-           "DIFF_PENALTY", "INF", "DIAG_UNBOUNDED", "RESIDENT_PAD"]
+__all__ = ["extend", "extend_reference", "extend_packed",
+           "extend_packed_reference", "extend_batch_packed",
+           "unpack_extension", "bw_for", "DeviceStore", "device_store",
+           "reset_device_store", "host_window_meta", "DIFF_PENALTY", "INF",
+           "DIAG_UNBOUNDED", "RESIDENT_PAD"]
 
 DIFF_PENALTY = 6  # score = advance - 6*diffs → break-even at ~33% error
 INF = 1 << 28
@@ -40,8 +49,10 @@ _TRACE = 126
 #: the TPU kernel's row-chunk length: window buckets stay multiples of it
 _CHUNK = 42
 
-#: launches of the K1 kernel (never of the plain version)
+#: launches of the K1 kernel on the device store (never of the plain version)
 launches = 0
+#: launches of the K1 kernel on 2-bit packed windows (K1p)
+packed_launches = 0
 
 
 def bw_for(R: int, W: int) -> int:
@@ -167,6 +178,18 @@ def device_store() -> DeviceStore:
         return _STORE
 
 
+def reset_device_store(capacity: int | None = None) -> DeviceStore:
+    """Replace the process-wide store by an empty one of ``capacity``
+    bytes (default: :func:`_store_capacity`) on the chosen device.  A
+    store too small for a run's sequences sends every extension flush
+    down the host-window path (K1p), as a store that outgrows the card
+    does."""
+    global _STORE
+    with _STORE_LOCK:
+        _STORE = DeviceStore(get_device(), capacity)
+        return _STORE
+
+
 # ======================================================================
 # K1 wrapper, plain version, decode
 # ======================================================================
@@ -189,8 +212,23 @@ def host_window_meta(a_len, b_len, lane_k, diag_lo, diag_hi, N: int, R: int,
     return meta
 
 
-def _check_args(store, meta12, nk, R, W):
+def _check_shape(nk, R, W):
+    """The row and schedule checks of both modes; returns BW."""
+    if R % _CHUNK or R % _TRACE or W % 32 or not 32 <= W <= 1024:
+        raise KernelError(f"unsupported shape R={R}, W={W}")
     BW = bw_for(R, W)
+    # every band schedule must stay inside the B window (the TPU kernel's
+    # window refills would clamp otherwise) and move 0..2 columns per row
+    if nk.ndim != 1 or len(nk) == 0:
+        raise KernelError("num_k must hold one slope per schedule")
+    if (int(nk.min()) < 0 or int(nk.max()) > 2 * R
+                    or int(nk.max()) - W // 2 - 1 + 2 * W + 2 * _CHUNK > BW):
+        raise KernelError("num_k outside the band schedules' range")
+    return BW
+
+
+def _check_args(store, meta12, nk, R, W):
+    BW = _check_shape(nk, R, W)
     if store.dtype != torch.uint8 or store.dim() != 1:
         raise KernelError("store must be a 1-D uint8 tensor")
     if meta12.dtype != torch.int32 or meta12.dim() != 2 or meta12.shape[0] != 12:
@@ -199,17 +237,8 @@ def _check_args(store, meta12, nk, R, W):
         raise KernelError("store and meta12 must share a device")
     if not (store.is_contiguous() and meta12.is_contiguous()):
         raise KernelError("extend takes contiguous tensors")
-    if R % _CHUNK or R % _TRACE or W % 32 or not 32 <= W <= 1024:
-        raise KernelError(f"unsupported shape R={R}, W={W}")
     if store.numel() < max(R, BW) or store.numel() >= 1 << 31:
         raise KernelError("store size out of range")
-    # every band schedule must stay inside the B window (the TPU kernel's
-    # window refills would clamp otherwise) and move 0..2 columns per row
-    if nk.ndim != 1 or len(nk) == 0:
-        raise KernelError("num_k must hold one slope per schedule")
-    if (int(nk.min()) < 0 or int(nk.max()) > 2 * R
-                    or int(nk.max()) - W // 2 - 1 + 2 * W + 2 * _CHUNK > BW):
-        raise KernelError("num_k outside the band schedules' range")
     return BW
 
 
@@ -252,6 +281,100 @@ def extend(store: torch.Tensor, meta12: torch.Tensor, num_k,
     with _build.launch_lock:
         launches += 1
     return out
+
+
+def _check_packed(chars_pack, meta5, nk, R, W):
+    if chars_pack.dtype != torch.uint8 or chars_pack.dim() != 2:
+        raise KernelError("chars_pack must be a 2-D uint8 tensor")
+    if meta5.dtype != torch.int32 or meta5.dim() != 2 or meta5.shape[0] != 5:
+        raise KernelError("meta5 must be a (5, N) int32 tensor")
+    if chars_pack.device != meta5.device:
+        raise KernelError("chars_pack and meta5 must share a device")
+    N = meta5.shape[1]
+    BW = _check_shape(nk, R, W)
+    if tuple(chars_pack.shape) != (N, (R + BW) // 4):
+        raise KernelError(f"chars_pack must be (N, (R + BW)/4) = "
+                          f"({N}, {(R + BW) // 4})")
+    return BW
+
+
+def extend_packed(chars_pack: torch.Tensor, meta5: torch.Tensor, num_k,
+                  R: int, W: int = 256) -> torch.Tensor:
+    """K1p: the extension DP on host-assembled windows, 2-bit packed.
+
+    ``chars_pack`` (N, R/4 + BW/4) uint8 rows = [A window | B window]
+    (:func:`~.pack2.pack2bit` of the oriented, zero-padded windows);
+    ``meta5`` (5, N) int32 rows b_len, lane_k, a_len, diag_lo, diag_hi;
+    ``num_k`` as in :func:`extend`.  Returns the same (4 + R/126, N)
+    block."""
+    global packed_launches
+    nk = _host_ints(num_k)
+    BW = _check_packed(chars_pack, meta5, nk, R, W)
+    dev = chars_pack.device
+    if dev.type == "cpu":
+        return extend_packed_reference(chars_pack, meta5, nk, R, W)
+    if dev.type != "cuda":
+        raise KernelError(f"extend_packed: no kernel for device {dev}")
+    if not (chars_pack.is_contiguous() and meta5.is_contiguous()):
+        raise KernelError("extend_packed takes contiguous tensors")
+    N = meta5.shape[1]
+    if N * chars_pack.shape[1] >= 1 << 31:
+        raise KernelError("chars_pack size out of range")
+    out = torch.empty((4 + R // _TRACE, N), dtype=torch.int32, device=dev)
+    if N == 0:
+        return out
+    num_dev = torch.from_numpy(nk.astype(np.int32)).to(dev)
+    fn = _build.kernel_fn("dentist_extend_packed", 4, 4)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = fn(chars_pack.data_ptr(), meta5.data_ptr(), num_dev.data_ptr(),
+                    out.data_ptr(), N, R, W, BW, stream)
+    _build.check("dentist_extend_packed", status)
+    with _build.launch_lock:
+        packed_launches += 1
+    return out
+
+
+def extend_packed_reference(chars_pack: torch.Tensor, meta5: torch.Tensor,
+                            num_k, R: int, W: int = 256) -> torch.Tensor:
+    """Plain PyTorch version of :func:`extend_packed`: unpack, lay the
+    windows out as a host-window scratch buffer, run
+    :func:`extend_reference`."""
+    N = meta5.shape[1]
+    BW = bw_for(R, W)
+    chars = unpack2bit(chars_pack)
+    scratch = torch.cat([chars[:, :R].reshape(-1), chars[:, R:].reshape(-1)])
+    m5 = meta5.cpu().numpy()
+    meta12 = host_window_meta(m5[2], m5[0], m5[1], m5[3], m5[4], N, R, BW)
+    return extend_reference(scratch, torch.from_numpy(meta12).to(chars.device),
+                            num_k, R, W)
+
+
+def extend_batch_packed(a_win: np.ndarray, b_win: np.ndarray, a_len, b_len,
+                        num_k, lane_k, W: int = 256, diag_lo=None,
+                        diag_hi=None, group=None) -> torch.Tensor:
+    """Host-window dispatch (port of ``extend_batch_packed_async``):
+    packs the (N, R) A and (N, ``bw_for(R, W)``) B windows and launches
+    K1p on the chosen device.  With a data-parallel ``group`` each rank
+    packs and runs only its contiguous block of lanes (N must be a
+    multiple of the group size) and the blocks are gathered along the
+    lane axis (port of ``sharded_extend_v3_packed``), so every rank
+    returns the whole block, equal to the single-device result."""
+    N, R = a_win.shape
+    if diag_lo is None:
+        diag_lo = np.full(N, -DIAG_UNBOUNDED, dtype=np.int32)
+    if diag_hi is None:
+        diag_hi = np.full(N, DIAG_UNBOUNDED, dtype=np.int32)
+    meta5 = np.stack([np.asarray(x, dtype=np.int32) for x in
+                      (b_len, lane_k, a_len, diag_lo, diag_hi)])
+    a_win = local_lanes(a_win, group, 0)
+    b_win = local_lanes(b_win, group, 0)
+    meta5 = np.ascontiguousarray(local_lanes(meta5, group, 1))
+    chars = np.concatenate([pack2bit(a_win), pack2bit(b_win)], axis=1)
+    dev = get_device()
+    out = extend_packed(torch.from_numpy(chars).to(dev),
+                        torch.from_numpy(meta5).to(dev), num_k, R=R, W=W)
+    return gather_lanes(out, group, 1)
 
 
 def _windows(store, start, size, rev):

@@ -6,17 +6,21 @@ hill climb — is the JAX package's, unchanged, so the same lanes share a
 dispatch and the same lanes are retried.  The device work is two
 hand-written CUDA kernels:
 
-- K2 (:func:`dentist_tpu_torch.ops.nw_round.nw_round`) runs the full
-  template rounds and the fixed-shape windowed rounds (192 template rows,
-  384 read chars); the windows' interior columns are cut out on the
-  device with ``gather``.
-- K3 (:func:`dentist_tpu_torch.ops.nw_dist.nw_dist_pairs`) scores the
-  polish candidates.
+- K2p (:func:`dentist_tpu_torch.ops.nw_round.nw_round_packed`) runs the
+  full template rounds and the fixed-shape windowed rounds (192 template
+  rows, 384 read chars); the windows' interior columns are cut out on
+  the device with ``gather``.
+- K3p (:func:`dentist_tpu_torch.ops.nw_dist.nw_dist_pairs_packed`)
+  scores the polish candidates.
 
-Inputs are built on the host, as the JAX package's non-resident paths
-build them, and results come back dense: the JAX package's 2-bit,
-sparse and arena-resident transports carry the same decoded values and
-are not ported.
+Inputs are built on the host and shipped 2-bit packed, as the JAX
+package's non-resident paths ship them; results come back as K2's dense
+fields, the JAX package's ``DENTIST_TPU_DENSE_CONS=1`` path (its sparse
+result blocks and arena-resident windowed inputs carry the same decoded
+values and are not ported).  Under a data-parallel ``group`` every
+dispatch's lanes split over the ranks and the results are gathered
+(port of ``_sharded_nw_round``, ``_sharded_nw_window_round`` and
+``_sharded_nw_dist``), so every rank computes the same consensi.
 
 The daccord replacement (SURVEY §2.3): reads of one pile-up share one
 genomic interval and orientation, so each is aligned to the template by
@@ -38,8 +42,10 @@ from dentist_tpu.models.alignments import TRACE_SPACING
 from dentist_tpu.utils.prof import prof, prof_add
 
 from ..device import get_device
-from .nw_dist import nw_dist_pairs
-from .nw_round import nw_round
+from ..parallel.dp import dispatch_workers, gather_lanes, local_lanes, pad_lanes
+from .nw_dist import nw_dist_pairs_packed
+from .nw_round import nw_round_packed
+from .pack2 import pack2bit
 
 __all__ = ["ConsensusResult", "consensus", "consensus_batch",
            "rank_reference_reads"]
@@ -195,7 +201,7 @@ def _prop_centers(T: int, read_lens: np.ndarray) -> np.ndarray:
     return _clamp_steps(prop.astype(np.int32))
 
 
-def _run_round(jobs, W: int) -> list[_RoundOut]:
+def _run_round(jobs, W: int, group=None) -> list[_RoundOut]:
     """One realign round for every job, routed per lane.
 
     Lanes whose previous-round traceback path is available (``jpath``
@@ -222,7 +228,7 @@ def _run_round(jobs, W: int) -> list[_RoundOut]:
     retry_map: list[tuple[int, int]] = []  # (job_idx, read_idx)
     if win_jobs:
         wouts, failures = _run_round_windowed([jobs[ji] for ji in win_jobs],
-                                              W)
+                                              W, group)
         for wi, ji in enumerate(win_jobs):
             outs[ji] = wouts[wi]
         for wi, ri in failures:
@@ -231,7 +237,7 @@ def _run_round(jobs, W: int) -> list[_RoundOut]:
             retry_map.append((ji, ri))
     if full_jobs or retry_jobs:
         fouts = _run_round_full([jobs[ji] for ji in full_jobs] + retry_jobs,
-                                W)
+                                W, group)
         for k, ji in enumerate(full_jobs):
             outs[ji] = fouts[k]
         for k, (ji, ri) in enumerate(retry_map):
@@ -247,7 +253,7 @@ def _run_round(jobs, W: int) -> list[_RoundOut]:
     return outs
 
 
-def _run_round_full(jobs, W: int) -> list[_RoundOut]:
+def _run_round_full(jobs, W: int, group=None) -> list[_RoundOut]:
     """Align every job's reads to its template in bucketed batched
     dispatches; lanes from all jobs share dispatches.
 
@@ -291,9 +297,12 @@ def _run_round_full(jobs, W: int) -> list[_RoundOut]:
             plan.append((chunk, TB))
 
     with prof("cons.full.dispatch"):
-        with ThreadPoolExecutor(max_workers=4) as ex:
+        # launches serialize in a group: gathers run in the same order on
+        # every rank
+        with ThreadPoolExecutor(max_workers=dispatch_workers(4)) as ex:
             handles = list(ex.map(
-                lambda t: _dispatch_chunk(lanes, t[0], t[1], W, centers_for),
+                lambda t: _dispatch_chunk(lanes, t[0], t[1], W, centers_for,
+                                          group),
                 plan))
     with prof("cons.full.fetch"):
         fetched = [_fetch(h) for h in handles]
@@ -320,7 +329,7 @@ def _run_round_full(jobs, W: int) -> list[_RoundOut]:
                 return centers_prop[ji][:, ri]
 
             retries.append((retry, _dispatch_chunk(lanes, retry, TB, W,
-                                                   prop_for)))
+                                                   prop_for, group)))
     for retry, h in retries:
         _collect_chunk(lanes, retry, outs, _fetch(h), only_if_better=True)
 
@@ -374,7 +383,7 @@ _SEG = 2 * _WS
 #: prefixes are free in the kernel; trailing slack would be force-consumed)
 _LEAD_SLACK = 8
 
-def _run_round_windowed(jobs, W: int):
+def _run_round_windowed(jobs, W: int, group=None):
     """Realign via independent path-anchored template windows.
 
     Every (read, window) pair becomes one lane of a SINGLE fixed shape
@@ -464,7 +473,8 @@ def _run_round_windowed(jobs, W: int):
              hits=len(jobs))
     with prof("cons.win.dispatch+fetch"):  # bytes: see cons.win.fetch
         fetched = _dispatch_windowed_lanes(
-            lane_tpl, lane_tlen, lane_seg, lane_seglen, lane_loc0, total, W)
+            lane_tpl, lane_tlen, lane_seg, lane_seglen, lane_loc0, total, W,
+            group)
     prof_add("cons.win.lanes", hits=total)
 
     _t_stitch = time.perf_counter()
@@ -562,15 +572,16 @@ _WCHUNK = 2048
 
 
 def _dispatch_windowed_lanes(lane_tpl, lane_tlen, lane_seg, lane_seglen,
-                             lane_loc0, total: int, W: int):
-    """Run all window lanes through K2 in fixed-shape chunks; returns
+                             lane_loc0, total: int, W: int, group=None):
+    """Run all window lanes through K2p in fixed-shape chunks; returns
     stacked interior-only (sym (total, 126) int8, ins (total, 127, 4)
     int8, jpath (total, 127) int64 relative to each segment's start).
 
     Band centers are the proportional schedule ``c(r) = min(r, tlen) ·
     slen // tlen`` with steps clipped to 0..2 (an over-slope lane fails
-    coverage and is retried by the full round).  Only the ``_ADV``
-    interior columns from ``loc0`` on leave the device.
+    coverage and is retried by the full round); they travel as 2-bit
+    steps.  Only the ``_ADV`` interior columns from ``loc0`` on leave the
+    device (and, under a group, cross between ranks).
     """
     sym_all = np.full((total, _ADV), 5, np.int8)
     ins_all = np.zeros((total, _ADV + 1, 4), np.int8)
@@ -581,47 +592,48 @@ def _dispatch_windowed_lanes(lane_tpl, lane_tlen, lane_seg, lane_seglen,
     seg = np.concatenate(lane_seg)
     tlen = np.concatenate(lane_tlen).astype(np.int32)
     slen = np.concatenate(lane_seglen).astype(np.int32)
-    loc0 = np.concatenate(lane_loc0).astype(np.int64)
-    rows = np.arange(_WS + 1, dtype=np.int64)
+    loc0 = np.concatenate(lane_loc0).astype(np.int32)
+    rows = np.arange(_WS + 1, dtype=np.int32)
     dev = get_device()
     intr = torch.arange(_ADV, device=dev)
     bnd = torch.arange(_ADV + 1, device=dev)
 
     def dispatch(sel):
         m = len(sel)
-        Nc = next((b for b in _N_LADDER if m <= b <= _WCHUNK), _WCHUNK)
+        Nc = pad_lanes(next((b for b in _N_LADDER if m <= b <= _WCHUNK),
+                            _WCHUNK), group)
         tpl_c = np.zeros((Nc, _WS), np.uint8)
         seg_c = np.zeros((Nc, _SEG), np.uint8)
-        tl_c = np.ones(Nc, np.int32)
-        sl_c = np.zeros(Nc, np.int32)
-        lo_c = np.zeros(Nc, np.int64)
+        meta = np.zeros((4, Nc), np.int32)  # t_lens, seg_lens, c0, loc0
+        meta[0] = 1
         tpl_c[:m] = tpl[sel]
         seg_c[:m] = seg[sel]
-        tl_c[:m] = tlen[sel]
-        sl_c[:m] = slen[sel]
-        lo_c[:m] = loc0[sel]
-        tl = np.maximum(tl_c[:, None].astype(np.int64), 1)
-        cen = (np.minimum(rows[None, :], tl) * sl_c[:, None]) // tl
-        steps = np.diff(cen, axis=1).clip(0, 2)
-        centers = np.concatenate([np.zeros((Nc, 1), np.int64),
-                                  np.cumsum(steps, axis=1)], axis=1)
-        sym, ins, jpath, *_ = nw_round(
-            torch.from_numpy(np.ascontiguousarray(tpl_c.T)).to(dev),
-            torch.from_numpy(tl_c).to(dev), torch.from_numpy(seg_c).to(dev),
-            torch.from_numpy(sl_c).to(dev),
-            torch.from_numpy(np.ascontiguousarray(centers.T, np.int32)).to(dev),
-            T=_WS, W=W, S=_WS + _SEG, NWIN=max(TB_nwin(_WS), 1),
+        meta[0, :m] = tlen[sel]
+        meta[1, :m] = slen[sel]
+        meta[3, :m] = loc0[sel]
+        tl = np.maximum(tlen[sel, None], 1)
+        cen = (np.minimum(rows[None, :], tl) * slen[sel, None]) // tl
+        steps = np.zeros((Nc, _WS), np.uint8)
+        steps[:m] = np.diff(cen, axis=1).clip(0, 2)
+        chars = np.concatenate([pack2bit(local_lanes(x, group, 0))
+                                for x in (tpl_c, seg_c, steps)], axis=1)
+        meta = torch.from_numpy(np.ascontiguousarray(
+            local_lanes(meta, group, 1))).to(dev)
+        sym, ins, jpath, *_ = nw_round_packed(
+            torch.from_numpy(chars).to(dev), meta, T=_WS, RL=_SEG, W=W,
+            S=_WS + _SEG, NWIN=max(TB_nwin(_WS), 1),
             lead_free=2 * _LEAD_SLACK)
-        lo = torch.from_numpy(lo_c).to(dev)[:, None]
+        lo = meta[3].to(torch.int64)[:, None]
         idx_b = lo + bnd[None, :]
-        return (sym.gather(1, lo + intr[None, :]),
-                ins.gather(1, idx_b[:, :, None].expand(-1, -1, 4)),
-                jpath.gather(1, idx_b))
+        return tuple(gather_lanes(x, group, 0) for x in (
+            sym.gather(1, lo + intr[None, :]),
+            ins.gather(1, idx_b[:, :, None].expand(-1, -1, 4)),
+            jpath.gather(1, idx_b)))
 
     plan = [np.arange(c0, min(c0 + _WCHUNK, total))
             for c0 in range(0, total, _WCHUNK)]
     with prof("cons.win.enqueue"):
-        with ThreadPoolExecutor(max_workers=4) as ex:
+        with ThreadPoolExecutor(max_workers=dispatch_workers(4)) as ex:
             handles = list(ex.map(dispatch, plan))
     with prof("cons.win.fetch"):
         arrs = [_fetch(h) for h in handles]
@@ -640,21 +652,24 @@ def _fetch(handle) -> tuple:
     return tuple(t.cpu().numpy() for t in handle)
 
 
-def _dispatch_chunk(lanes, chunk, TB, W, centers_for):
+def _dispatch_chunk(lanes, chunk, TB, W, centers_for, group=None):
     """Assemble + launch one chunk of a full round; returns K2's seven
     output tensors (padded to the chunk's lane bucket).
 
     ``centers_for(lane_idx)`` supplies each lane's step-clamped band
     center column; reads longer than the 2·T read bucket run on their
-    prefix (see :func:`_rl_bucket`).
+    prefix (see :func:`_rl_bucket`).  Templates, reads and the centers'
+    0..2 steps travel 2-bit packed; under a group each rank packs and
+    runs its block of lanes and the seven outputs are gathered.
     """
     RLB = _rl_bucket(0, TB)
-    N = _n_bucket_lanes(len(chunk), TB, W)
+    # non-power-of-2 groups: pad to a lane multiple
+    N = pad_lanes(_n_bucket_lanes(len(chunk), TB, W), group)
     tpl = np.zeros((N, TB), dtype=np.uint8)
     t_lens = np.ones(N, dtype=np.int32)
     reads_arr = np.zeros((N, RLB), dtype=np.uint8)
     read_lens = np.zeros(N, dtype=np.int32)
-    centers = np.zeros((TB + 1, N), dtype=np.int64)
+    centers = np.zeros((TB + 1, N), dtype=np.int32)
     for k, li in enumerate(chunk):
         ji, ri, template, r = lanes[li]
         T = len(template)
@@ -666,17 +681,18 @@ def _dispatch_chunk(lanes, chunk, TB, W, centers_for):
         c = centers_for(li)
         centers[: T + 1, k] = c
         centers[T + 1 :, k] = c[T]
-    # the kernel's band moves 0..2 columns per row: centers run as their
-    # first row plus clipped steps (a no-op for the clamped schedules)
-    steps = np.clip(np.diff(centers, axis=0), 0, 2)
-    centers = np.concatenate([centers[:1], centers[:1] + np.cumsum(steps, axis=0)])
+    # the kernel's band moves 0..2 columns per row: centers travel as
+    # their first row plus clipped steps (a no-op for the clamped schedules)
+    steps = np.clip(np.diff(centers, axis=0), 0, 2).astype(np.uint8).T  # (N, TB)
+    meta = np.stack([t_lens, read_lens, centers[0]])
+    chars = np.concatenate([pack2bit(local_lanes(x, group, 0))
+                            for x in (tpl, reads_arr, steps)], axis=1)
     dev = get_device()
-    return nw_round(
-        torch.from_numpy(np.ascontiguousarray(tpl.T)).to(dev),
-        torch.from_numpy(t_lens).to(dev), torch.from_numpy(reads_arr).to(dev),
-        torch.from_numpy(read_lens).to(dev),
-        torch.from_numpy(centers.astype(np.int32)).to(dev),
-        T=TB, W=W, S=TB + RLB, NWIN=max(TB_nwin(TB), 1))
+    out = nw_round_packed(
+        torch.from_numpy(chars).to(dev),
+        torch.from_numpy(np.ascontiguousarray(local_lanes(meta, group, 1))).to(dev),
+        T=TB, RL=RLB, W=W, S=TB + RLB, NWIN=max(TB_nwin(TB), 1))
+    return tuple(gather_lanes(x, group, 0) for x in out)
 
 
 def _collect_chunk(lanes, chunk, outs, fetched, only_if_better=False):
@@ -856,7 +872,8 @@ def _assemble_gain_group(template, pos, kind, base, reads_arr, jpath,
     return win, wlen, ewin, elen, seg, seglen, ok
 
 
-def _window_gains_multi(groups, W_score: int = 16, HALF: int = 16):
+def _window_gains_multi(groups, W_score: int = 16, HALF: int = 16,
+                        group=None):
     """Score candidate edits on path-anchored local windows, batched
     across pile-ups.
 
@@ -911,8 +928,9 @@ def _window_gains_multi(groups, W_score: int = 16, HALF: int = 16):
         Ktot = len(WIN)
         for c0 in range(0, Ktot, _V_MAX // 2):
             n_chunk = min(_V_MAX // 2, Ktot - c0)
-            # two V widths only (see _V_SMALL)
-            V = _V_SMALL // 2 if n_chunk <= _V_SMALL // 2 else _V_MAX // 2
+            # two V widths only (see _V_SMALL); non-power-of-2 groups pad
+            V = pad_lanes(_V_SMALL // 2 if n_chunk <= _V_SMALL // 2
+                          else _V_MAX // 2, group)
             buf = np.zeros((V, 2 * TWp + NB * RW), dtype=np.uint8)
             meta = np.zeros((V, 2 + NB), dtype=np.int32)
             sl = slice(c0, c0 + n_chunk)
@@ -922,9 +940,11 @@ def _window_gains_multi(groups, W_score: int = 16, HALF: int = 16):
             meta[:n_chunk, 0] = WLEN[sl]
             meta[:n_chunk, 1] = ELEN[sl]
             meta[:n_chunk, 2:] = SLEN[sl]
-            out = nw_dist_pairs(torch.from_numpy(buf).to(dev),
-                                torch.from_numpy(meta).to(dev),
-                                TW=TW, TWp=TWp, RW=RW, NB=NB)
+            out = nw_dist_pairs_packed(
+                torch.from_numpy(pack2bit(local_lanes(buf, group, 0))).to(dev),
+                torch.from_numpy(local_lanes(meta, group, 0)).to(dev),
+                TW=TW, TWp=TWp, RW=RW, NB=NB)
+            out = gather_lanes(out, group, 1)
             inflight.append((dst[sl], OK[sl], n_chunk, out))
 
     prof_add("cons.gains.assemble+enqueue",
@@ -1053,7 +1073,7 @@ def _votes_refresh(votes, out: _RoundOut, T: int):
 
 
 def _polish_batch(states, read_sets, W: int, max_rounds: int = 8,
-                  tie_policy: str = "delete"):
+                  tie_policy: str = "delete", group=None):
     """Hill-climb on total edit distance to all reads, batched.
 
     Candidate edits (single-base insertions, deletions, substitutions)
@@ -1094,7 +1114,7 @@ def _polish_batch(states, read_sets, W: int, max_rounds: int = 8,
                          dirty=states[p].get("dirty"),
                          reads_arr=states[p].get("reads_arr"))
                 for p in stale]
-        for ai, out in enumerate(_run_round(jobs, W)):
+        for ai, out in enumerate(_run_round(jobs, W, group)):
             p = stale[ai]
             states[p]["last_out"] = out
             states[p]["jpath"] = out.jpath
@@ -1133,7 +1153,7 @@ def _polish_batch(states, read_sets, W: int, max_rounds: int = 8,
                                    states[p]["jpath"]))
                     group_meta.append((p, miss))
         if groups:
-            gains = _window_gains_multi(groups, HALF=HALF)
+            gains = _window_gains_multi(groups, HALF=HALF, group=group)
             gi = 0
             for p, miss in group_meta:
                 for c in miss:
@@ -1214,7 +1234,7 @@ def _polish_batch(states, read_sets, W: int, max_rounds: int = 8,
                              dirty=dirty_now[p],
                              reads_arr=states[p]["reads_arr"])
                     for p in edited]
-            for ai, out in enumerate(_run_round(jobs, W)):
+            for ai, out in enumerate(_run_round(jobs, W, group)):
                 p = edited[ai]
                 states[p]["last_out"] = out
                 states[p]["jpath"] = out.jpath
@@ -1268,13 +1288,18 @@ def _trivial_result(reads: list[np.ndarray]) -> ConsensusResult | None:
 
 def consensus_batch(read_sets: list[list[np.ndarray]], rounds: int = 3,
                     W: int = 128, template_idxs: list[int | None] | None = None,
-                    polish: bool = True, tie_policy: str = "delete") -> list[ConsensusResult]:
+                    polish: bool = True, tie_policy: str = "delete",
+                    group=None) -> list[ConsensusResult]:
     """Compute consensi for MANY pile-ups; dispatches are shared.
 
     Each realign round batches the lanes of every still-active pile-up
     into a handful of bucketed kernel launches (the reference
     thread-parallelizes pile-ups, ``processPileUps/package.d:153``; here
-    they share launches instead).
+    they share launches instead).  With a data-parallel ``group`` every
+    launch's lanes split over its ranks, with gathered results (the
+    reference's ``--batch`` slices + ``merge-insertions``,
+    ``snakemake/Snakefile:1315-1358``); every rank returns the same
+    consensi, equal to the single-device ones.
     """
     read_sets = [[np.asarray(r, dtype=np.uint8) for r in rs if len(r) > 0]
                  for rs in read_sets]
@@ -1315,7 +1340,7 @@ def consensus_batch(read_sets: list[list[np.ndarray]], rounds: int = 3,
                          dirty=states[p]["dirty"],
                          reads_arr=states[p]["reads_arr"])
                 for p in active]
-        outs = _run_round(jobs, W)
+        outs = _run_round(jobs, W, group)
         for ai, p in enumerate(active):
             st = states[p]
             T = len(st["template"])
@@ -1343,7 +1368,7 @@ def consensus_batch(read_sets: list[list[np.ndarray]], rounds: int = 3,
     if polish:
         _polish_batch([states[p] for p in live],
                       [read_sets[p] for p in live], W,
-                      tie_policy=tie_policy)
+                      tie_policy=tie_policy, group=group)
 
     # refresh stats for pile-ups whose template changed after their last round
     stale = [p for p in live if states[p]["stats_stale"]
@@ -1356,7 +1381,7 @@ def consensus_batch(read_sets: list[list[np.ndarray]], rounds: int = 3,
                          dirty=states[p]["dirty"],
                          reads_arr=states[p]["reads_arr"])
                 for p in stale]
-        outs = _run_round(jobs, W)
+        outs = _run_round(jobs, W, group)
         for ai, p in enumerate(stale):
             states[p]["last_out"] = outs[ai]
             states[p]["stats_stale"] = False
@@ -1376,7 +1401,7 @@ def consensus_batch(read_sets: list[list[np.ndarray]], rounds: int = 3,
 
 def consensus(reads: list[np.ndarray], rounds: int = 3, W: int = 128,
               template_idx: int | None = None, polish: bool = True,
-              tie_policy: str = "delete") -> ConsensusResult:
+              tie_policy: str = "delete", group=None) -> ConsensusResult:
     """Compute one pile-up's consensus (see :func:`consensus_batch`).
 
     ``tie_policy`` selects the error-profile tilt applied to
@@ -1385,7 +1410,7 @@ def consensus(reads: list[np.ndarray], rounds: int = 3, W: int = 128,
     """
     return consensus_batch([reads], rounds=rounds, W=W,
                            template_idxs=[template_idx], polish=polish,
-                           tie_policy=tie_policy)[0]
+                           tie_policy=tie_policy, group=group)[0]
 
 
 def rank_reference_reads(win_diffs: np.ndarray, spans: np.ndarray,

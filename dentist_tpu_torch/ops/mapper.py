@@ -60,11 +60,14 @@ def map_reads(
     config: MapperConfig | None = None,
     mask_intervals: np.ndarray | None = None,
     query_store=None,
+    group=None,
 ) -> tuple[LocalAlignmentSet, list[Chain]]:
     """Map reads against the assembly.  Returns (las, chains).
 
     ``las`` contains only LAs belonging to surviving chains, sorted
     canonically, with ``chain_id`` set; ``chains`` index into it.
+    ``group`` splits extension dispatches over data-parallel ranks (see
+    :func:`~.aligner.align_store_pair`).
     """
     from dentist_tpu.utils.prof import prof
 
@@ -73,7 +76,7 @@ def map_reads(
         las = align_store_pair(
             target_codes, target_offsets, target_lengths, reads, read_ids,
             config=cfg.aligner, mask_intervals=mask_intervals,
-            query_store=query_store,
+            query_store=query_store, group=group,
         )
     with prof("map.chain"):
         all_chains, las = chain_local_alignments(las, cfg.chaining)

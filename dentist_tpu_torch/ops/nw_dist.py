@@ -7,8 +7,10 @@ window (≤ TW template chars) are scored against the same NB read
 segments (≤ RW chars each), as exact global edit distances.
 
 :func:`nw_dist_pairs` launches ``csrc/nw_dist.cu`` for CUDA tensors and
-runs :func:`nw_dist_pairs_reference` for CPU tensors.  The TPU's 2-bit
-transfer packing is not ported: the wrapper takes the unpacked bytes.
+runs :func:`nw_dist_pairs_reference` for CPU tensors.
+:func:`nw_dist_pairs_packed` (K3p) takes the same rows 2-bit packed, as
+``_nw_dist_pair_packed`` does; its plain version unpacks and calls
+:func:`nw_dist_pairs_reference`.
 """
 
 from __future__ import annotations
@@ -17,16 +19,19 @@ import torch
 
 from .. import _build
 from ..errors import KernelError
+from .pack2 import unpack2bit
 
-__all__ = ["nw_dist_pairs", "nw_dist_pairs_reference", "nw_dist_full_reference",
-           "INF"]
+__all__ = ["nw_dist_pairs", "nw_dist_pairs_reference", "nw_dist_pairs_packed",
+           "nw_dist_pairs_packed_reference", "nw_dist_full_reference", "INF"]
 
 INF = 1 << 28
 #: the kernel keeps a read and a DP row per thread: reads up to 127 chars
 _RW_MAX = 127
 
-#: launches of the K3 kernel (never of the plain version)
+#: launches of the K3 kernel on unpacked rows (never of the plain version)
 launches = 0
+#: launches of the K3 kernel on 2-bit packed rows (K3p)
+packed_launches = 0
 
 
 def nw_dist_pairs(buf: torch.Tensor, meta: torch.Tensor, TW: int, TWp: int,
@@ -66,6 +71,48 @@ def nw_dist_pairs(buf: torch.Tensor, meta: torch.Tensor, TW: int, TWp: int,
         with _build.launch_lock:
             launches += 1
     return out
+
+
+def nw_dist_pairs_packed(chars_pack: torch.Tensor, meta: torch.Tensor, TW: int,
+                         TWp: int, RW: int, NB: int) -> torch.Tensor:
+    """K3p: :func:`nw_dist_pairs` on ``chars_pack`` (V, (2·TWp +
+    NB·RW)/4) uint8, the 2-bit packed rows of ``buf``."""
+    global packed_launches
+    V = meta.shape[0]
+    L = 2 * TWp + NB * RW
+    if L % 4 or chars_pack.dtype != torch.uint8 or chars_pack.shape != (V, L // 4):
+        raise KernelError("chars_pack must be (V, (2*TWp + NB*RW)/4) uint8")
+    if meta.dtype != torch.int32 or meta.shape != (V, 2 + NB):
+        raise KernelError("meta must be (V, 2 + NB) int32")
+    if chars_pack.device != meta.device:
+        raise KernelError("chars_pack and meta must share a device")
+    if not 0 < TW <= TWp or not 0 < RW <= _RW_MAX:
+        raise KernelError(f"unsupported shape TW={TW} TWp={TWp} RW={RW}")
+    dev = chars_pack.device
+    if dev.type == "cpu":
+        return nw_dist_pairs_packed_reference(chars_pack, meta, TW, TWp, RW, NB)
+    if dev.type != "cuda":
+        raise KernelError(f"nw_dist_pairs_packed: no kernel for device {dev}")
+    chars_pack = chars_pack.contiguous()
+    meta = meta.contiguous()
+    out = torch.empty((2, V, NB), dtype=torch.int32, device=dev)
+    if V and NB:
+        fn = _build.kernel_fn("dentist_nw_dist_packed", 3, 5)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            status = fn(chars_pack.data_ptr(), meta.data_ptr(), out.data_ptr(),
+                        V, TW, TWp, RW, NB, stream)
+        _build.check("dentist_nw_dist_packed", status)
+        with _build.launch_lock:
+            packed_launches += 1
+    return out
+
+
+def nw_dist_pairs_packed_reference(chars_pack, meta, TW: int, TWp: int,
+                                   RW: int, NB: int):
+    """Plain PyTorch version of :func:`nw_dist_pairs_packed`."""
+    return nw_dist_pairs_reference(unpack2bit(chars_pack), meta, TW, TWp, RW,
+                                   NB)
 
 
 def nw_dist_pairs_reference(buf, meta, TW: int, TWp: int, RW: int, NB: int):

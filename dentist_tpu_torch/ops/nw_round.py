@@ -17,6 +17,12 @@ path back and reduces it into dense per-lane columns:
 :func:`nw_round` launches ``csrc/nw_round.cu`` for CUDA tensors and runs
 :func:`nw_round_reference`, the plain PyTorch version, for CPU tensors.
 Band centers must step by 0..2 per row, as the host builds them.
+
+:func:`nw_round_packed` (K2p, port of ``_nw_round_packed`` and of the
+2-bit input of ``_nw_window_round``) takes the lanes as one 2-bit packed
+row each — [template | read | band-center steps] — and rebuilds the
+centers on the device as the running sum of the steps; its plain version
+unpacks and calls :func:`nw_round_reference`.
 """
 
 from __future__ import annotations
@@ -25,15 +31,19 @@ import torch
 
 from .. import _build
 from ..errors import KernelError
+from .pack2 import unpack2bit
 
-__all__ = ["nw_round", "nw_round_reference", "INF"]
+__all__ = ["nw_round", "nw_round_reference", "nw_round_packed",
+           "nw_round_packed_reference", "INF"]
 
 INF = 1 << 28
 _DIAG, _UP, _LEFT, _NONE = 0, 1, 2, 3
 _TRACE = 126
 
-#: launches of the K2 kernel (never of the plain version)
+#: launches of the K2 kernel on unpacked inputs (never of the plain version)
 launches = 0
+#: launches of the K2 kernel on 2-bit packed inputs (K2p)
+packed_launches = 0
 
 
 def _check_args(tpl, t_lens, reads, read_lens, centers, T, W, S, NWIN):
@@ -98,6 +108,81 @@ def nw_round(tpl, t_lens, reads, read_lens, centers, T: int, W: int, S: int,
         with _build.launch_lock:
             launches += 1
     return sym, ins, jpath, spans, diffs, win, covered
+
+
+def _check_packed(chars_pack, meta, T, RL, W, S, NWIN):
+    if chars_pack.dtype != torch.uint8 or chars_pack.dim() != 2:
+        raise KernelError("chars_pack must be a 2-D uint8 tensor")
+    if meta.dtype != torch.int32 or meta.dim() != 2 or meta.shape[0] not in (3, 4):
+        raise KernelError("meta must be a (3 | 4, N) int32 tensor")
+    if chars_pack.device != meta.device:
+        raise KernelError("chars_pack and meta must share a device")
+    N = meta.shape[1]
+    if T % 4 or RL % 4 or tuple(chars_pack.shape) != (N, (2 * T + RL) // 4):
+        raise KernelError(f"chars_pack must be (N, (2T + RL)/4) with T, RL "
+                          f"multiples of 4; got {tuple(chars_pack.shape)}, "
+                          f"T={T}, RL={RL}")
+    if W % 32 or not 32 <= W <= 1024 or T < 1 or RL < 1 or S < 0 or NWIN < 1:
+        raise KernelError(f"unsupported shape T={T} W={W} RL={RL}")
+    return N
+
+
+def nw_round_packed(chars_pack, meta, T: int, RL: int, W: int, S: int,
+                    NWIN: int, lead_free: int = -1):
+    """K2p: one realign round for N lanes given 2-bit packed.
+
+    ``chars_pack`` (N, T/4 + RL/4 + T/4) uint8 = [template | read |
+    band-center steps] per lane (:func:`~.pack2.pack2bit`; steps are
+    0..2); ``meta`` (3, N) or (4, N) int32 rows t_lens, read_lens, first
+    band center (and ``loc0`` for windowed rounds, which the kernel does
+    not read).  Returns the seven outputs of :func:`nw_round`."""
+    global packed_launches
+    N = _check_packed(chars_pack, meta, T, RL, W, S, NWIN)
+    dev = chars_pack.device
+    if dev.type == "cpu":
+        return nw_round_packed_reference(chars_pack, meta, T, RL, W, S, NWIN,
+                                         lead_free)
+    if dev.type != "cuda":
+        raise KernelError(f"nw_round_packed: no kernel for device {dev}")
+    chars_pack = chars_pack.contiguous()
+    meta = meta.contiguous()
+    centers = torch.empty((N, T + 1), dtype=torch.int32, device=dev)
+    moves = torch.empty((N, T, W), dtype=torch.uint8, device=dev)
+    sym = torch.empty((N, T), dtype=torch.int8, device=dev)
+    ins = torch.empty((N, T + 1, 4), dtype=torch.int8, device=dev)
+    jpath = torch.empty((N, T + 1), dtype=torch.int32, device=dev)
+    spans = torch.empty((N, 2), dtype=torch.int32, device=dev)
+    diffs = torch.empty((N,), dtype=torch.int32, device=dev)
+    win = torch.empty((N, NWIN), dtype=torch.int32, device=dev)
+    covered = torch.empty((N,), dtype=torch.bool, device=dev)
+    if N:
+        fn = _build.kernel_fn("dentist_nw_round_packed", 11, 8)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            status = fn(chars_pack.data_ptr(), meta.data_ptr(),
+                        centers.data_ptr(), moves.data_ptr(), sym.data_ptr(),
+                        ins.data_ptr(), jpath.data_ptr(), spans.data_ptr(),
+                        diffs.data_ptr(), win.data_ptr(), covered.data_ptr(),
+                        N, T, RL, W, S, NWIN, lead_free, _TRACE, stream)
+        _build.check("dentist_nw_round_packed", status)
+        with _build.launch_lock:
+            packed_launches += 1
+    return sym, ins, jpath, spans, diffs, win, covered
+
+
+def nw_round_packed_reference(chars_pack, meta, T: int, RL: int, W: int,
+                              S: int, NWIN: int, lead_free: int = -1):
+    """Plain PyTorch version of :func:`nw_round_packed`: unpack, rebuild
+    the centers with a cumulative sum, run :func:`nw_round_reference`."""
+    codes = unpack2bit(chars_pack)
+    tpl = codes[:, :T].t().contiguous()
+    reads = codes[:, T : T + RL].contiguous()
+    steps = codes[:, T + RL :].t().to(torch.int32)
+    c0 = meta[2][None, :]
+    centers = torch.cat([c0, c0 + torch.cumsum(steps, 0, dtype=torch.int32)])
+    return nw_round_reference(tpl, meta[0].contiguous(), reads,
+                              meta[1].contiguous(), centers, T, W, S, NWIN,
+                              lead_free)
 
 
 def nw_round_reference(tpl, t_lens, reads, read_lens, centers, T: int, W: int,

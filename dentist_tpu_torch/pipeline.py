@@ -22,6 +22,14 @@ All intermediate state stays in memory; ``workdir`` (optional) persists
 the stage artifacts in the framework's container formats for inspection
 and restart — the checkpoint/resume model of the reference, where "the
 filesystem is the checkpoint" (SURVEY §5).
+
+When the environment describes a process group
+(:func:`dentist_tpu_torch.parallel.dp.default_group`), the pipeline
+joins it and every alignment and consensus dispatch splits its lanes
+over the ranks.  Every rank computes the same result; rank 0 alone
+writes the output files, the event log and the checkpoints, and a
+resumed run on every rank follows the checkpoints rank 0 finds (the
+workdir must be on a filesystem every rank sees).
 """
 
 from __future__ import annotations
@@ -56,6 +64,7 @@ from .models.pileups import ChainCtx, CollectConfig, collect_pile_ups
 from .models.process import ProcessConfig, process_pile_ups
 from .ops.aligner import AlignerConfig, align_store_pair
 from .ops.mapper import MapperConfig, map_reads
+from .parallel.dp import barrier, default_group
 
 
 def _chain_spans(las, chains):
@@ -106,7 +115,8 @@ class PipelineConfig:
 @trace_execution
 def run_pipeline(assembly_path, reads_path, out_path, cfg: PipelineConfig | None = None):
     cfg = cfg or PipelineConfig()
-    if cfg.workdir:  # persist the event log for lost-gaps analysis
+    writer = _is_writer(default_group())
+    if cfg.workdir and writer:  # persist the event log for lost-gaps analysis
         from dentist_tpu.utils.log import tee_log_file
 
         os.makedirs(cfg.workdir, exist_ok=True)
@@ -119,18 +129,30 @@ def run_pipeline(assembly_path, reads_path, out_path, cfg: PipelineConfig | None
         log_json("info", event="derivedReadCoverage", coverage=round(cfg.read_coverage, 2))
 
     result = close_gaps(contigs, structure, reads, read_list, cfg)
-    agp = os.path.splitext(out_path)[0] + ".agp"
-    bed = os.path.splitext(out_path)[0] + ".closed-gaps.bed"
-    write_output(result, out_path, agp_path=agp, bed_path=bed)
+    if writer:
+        agp = os.path.splitext(out_path)[0] + ".agp"
+        bed = os.path.splitext(out_path)[0] + ".closed-gaps.bed"
+        write_output(result, out_path, agp_path=agp, bed_path=bed)
     log_json("info", event="pipelineDone", out=out_path,
              numClosedGaps=result.n_closed_gaps)
     return result
 
 
+def _is_writer(group) -> bool:
+    """Whether this process writes files: rank 0 of a group, or a
+    process outside one."""
+    return group is None or group.rank == 0
+
+
 @trace_execution
 def masks_for(contigs: SeqStore, read_list, cfg: PipelineConfig,
               reads_store: SeqStore | None = None):
-    """Stages 1-3: dust, tandem, self-repeat, reads-repeat, homogenized."""
+    """Stages 1-3: dust, tandem, self-repeat, reads-repeat, homogenized.
+
+    Under a process group the self-alignment and read-mapping dispatches
+    split over the ranks (the reference's per-block Snakemake jobs,
+    ``Snakefile:998-1037,1143-1170``)."""
+    group = default_group()
     c, o, l = contigs.codes, contigs.offsets, contigs.lengths
     # dust is host-CPU, tandem is device-bound: true overlap
     from concurrent.futures import ThreadPoolExecutor
@@ -149,7 +171,7 @@ def masks_for(contigs: SeqStore, read_list, cfg: PipelineConfig,
             c, o, l, [contigs.get(i + 1) for i in range(len(contigs))],
             config=AlignerConfig(query_stride=4), self_alignment=True,
             mask_intervals=(dust | tan).iv,
-            query_store=(contigs.codes, contigs.offsets),
+            query_store=(contigs.codes, contigs.offsets), group=group,
         )
     self_las.check_invariants()  # contracts on in production (dub.sdl:26-28)
     self_mask = coverage_mask(pack_chain_intervals(self_las), l, 0, cfg.max_coverage_self)
@@ -160,7 +182,7 @@ def masks_for(contigs: SeqStore, read_list, cfg: PipelineConfig,
             c, o, l, read_list, config=MapperConfig(),
             mask_intervals=(dust | repeats).iv,
             query_store=(reads_store.codes, reads_store.offsets)
-            if reads_store is not None else None,
+            if reads_store is not None else None, group=group,
         )
     las.check_invariants()
     _, hi_reads = repeat_coverage_bounds_reads(cfg.read_coverage)
@@ -192,7 +214,7 @@ def masks_for(contigs: SeqStore, read_list, cfg: PipelineConfig,
 
 @trace_execution
 def close_gaps(contigs, structure, reads: SeqStore, read_list, cfg: PipelineConfig):
-    resume = _ResumeState(cfg, contigs, reads, structure)
+    resume = _ResumeState(cfg, contigs, reads, structure, default_group())
     loaded = resume.load_masks()
     if loaded is not None:
         dust, repeats, homogenized, las, chains = loaded
@@ -232,6 +254,7 @@ def close_gaps(contigs, structure, reads: SeqStore, read_list, cfg: PipelineConf
                                   cfg.min_reads_per_pile_up
                                   if cfg.min_reads_per_pile_up is not None
                                   else cfg.min_spanning_reads)),
+                group=default_group(),
             )
         _checkpoint(cfg, insertions=insertions)
     out_cfg = OutputConfig(join_policy=cfg.join_policy,
@@ -367,6 +390,7 @@ def _validation_pass(result, read_list, reads: SeqStore, cfg: PipelineConfig,
         config=MapperConfig(aligner=AlignerConfig(max_candidates=12,
                                                   query_stride=4)),
         mask_intervals=(p_dust | p_tan).iv,
+        group=default_group(),
         # the resident read store is already on device from the primary
         # mapping; validation ids index the same store
         query_store=(reads.codes, reads.offsets) if val_ids else None,
@@ -389,6 +413,12 @@ def _validation_pass(result, read_list, reads: SeqStore, cfg: PipelineConfig,
     return skip
 
 
+#: the stage artifacts a workdir holds besides ``manifest.json``
+_ARTIFACTS = ("dust.mask.npz", "repeats.mask.npz", "repeats-H.mask.npz",
+              "reads.las.npz", "pile-ups.npz", "insertions.npz",
+              "validation.json")
+
+
 class _ResumeState:
     """Stage-artifact reuse from a previous run's ``workdir``.
 
@@ -402,17 +432,27 @@ class _ResumeState:
     computation-affecting config field; artifacts are reused ONLY when
     the stored fingerprint matches the current inputs, so a changed
     FASTA or option can never silently reuse stale state.
+
+    Under a process group rank 0 alone checks the manifest, removes stale
+    artifacts and writes the manifest; the other ranks wait for it, then
+    read the same manifest.  Every rank decides from the artifacts that
+    exist then (``present``), so artifacts rank 0 writes during the run
+    change no rank's path.
     """
 
-    def __init__(self, cfg: PipelineConfig, contigs, reads, structure=None):
+    def __init__(self, cfg: PipelineConfig, contigs, reads, structure=None,
+                 group=None):
         import hashlib
         import json as _json
 
         self.dir = cfg.workdir if (cfg.workdir and cfg.resume) else None
         self.valid = False
+        self.present: set = set()
+        self.writer = writer = _is_writer(group)
         if not cfg.workdir:
             return
-        os.makedirs(cfg.workdir, exist_ok=True)
+        if writer:
+            os.makedirs(cfg.workdir, exist_ok=True)
         h = hashlib.blake2b(digest_size=16)
         for arr in (contigs.codes, contigs.lengths, reads.codes, reads.lengths):
             h.update(np.ascontiguousarray(arr).tobytes())
@@ -435,31 +475,39 @@ class _ResumeState:
             h.update(repr(getattr(cfg, f)).encode())
         self.token = h.hexdigest()
         mpath = os.path.join(cfg.workdir, "manifest.json")
-        if self.dir:
+
+        def manifest_valid() -> bool:
             try:
                 with open(mpath) as fh:
-                    self.valid = _json.load(fh).get("fingerprint") == self.token
+                    return _json.load(fh).get("fingerprint") == self.token
             except (OSError, ValueError):
-                self.valid = False
-        if not self.valid:
+                return False
+
+        if self.dir and writer:
+            self.valid = manifest_valid()
+        if writer and not self.valid:
             # inputs or options changed (or resume disabled): stale
             # artifacts must not mix with the fresh ones this run's
             # checkpoints write (pile-ups index into their own run's las),
             # and the manifest must describe THIS run's artifacts so a
             # later resumed run cannot adopt mismatched state
-            for name in ("dust.mask.npz", "repeats.mask.npz",
-                         "repeats-H.mask.npz", "reads.las.npz",
-                         "pile-ups.npz", "insertions.npz", "validation.json"):
+            for name in _ARTIFACTS:
                 try:
                     os.remove(os.path.join(cfg.workdir, name))
                 except OSError:
                     pass
             with open(mpath, "w") as fh:
                 _json.dump({"fingerprint": self.token}, fh)
+        barrier(group)
+        if self.dir and not writer:
+            self.valid = manifest_valid()
+        if self.valid:
+            self.present = {n for n in _ARTIFACTS
+                            if os.path.exists(os.path.join(self.dir, n))}
+        barrier(group)  # every rank has looked before rank 0 writes more
 
     def _have(self, *names) -> bool:
-        return self.valid and all(
-            os.path.exists(os.path.join(self.dir, n)) for n in names)
+        return self.valid and all(n in self.present for n in names)
 
     def load_masks(self):
         if not self._have("dust.mask.npz", "repeats.mask.npz",
@@ -509,7 +557,7 @@ class _ResumeState:
     def save_validation(self, skip: set):
         import json as _json
 
-        if not self.dir:
+        if not self.dir or not self.writer:
             return
         with open(os.path.join(self.dir, "validation.json"), "w") as fh:
             _json.dump({"skip_gaps": sorted(list(p) for p in skip)}, fh)
@@ -520,8 +568,9 @@ def _checkpoint(cfg: PipelineConfig, masks=None, las=None, pile_ups=None,
     """Persist stage artifacts to ``cfg.workdir`` (the reference's
     filesystem-is-the-checkpoint model, SURVEY §5) in the framework's
     container formats — inspectable with the ``show-*`` commands and
-    reusable by the staged CLI path."""
-    if not cfg.workdir:
+    reusable by the staged CLI path.  Rank 0 of a process group writes;
+    the other ranks write nothing."""
+    if not cfg.workdir or not _is_writer(default_group()):
         return
     from dentist_tpu.io.store import (save_alignments, save_insertions,
                                       save_mask, save_pile_ups)

@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on the card.
 
-Skipped where there is no GPU (a CUDA kernel has no CPU or interpret
+Each kernel runs in its unpacked mode and in its 2-bit packed mode
+(K1p, K2p, K3p).  Skipped where there is no GPU (a CUDA kernel has no CPU or interpret
 mode); on a machine with one, run ``python -m pytest --noconftest -m cuda
 tests/test_torch_kernels_cuda.py`` (``tests/conftest.py`` imports JAX).  Inputs are seeded numpy arrays at
 small shapes; every output must be bit-equal (integer DPs).
@@ -13,6 +14,7 @@ import torch
 from dentist_tpu_torch.ops import banded as K1
 from dentist_tpu_torch.ops import nw_dist as K3
 from dentist_tpu_torch.ops import nw_round as K2
+from dentist_tpu_torch.ops.pack2 import pack2bit
 
 pytestmark = pytest.mark.cuda
 
@@ -108,3 +110,59 @@ def test_nw_dist_kernel_equals_plain(cuda):
     torch.cuda.synchronize()
     assert K3.launches == n0 + 1
     assert torch.equal(got, K3.nw_dist_pairs_reference(b, m, TW, TWp, RW, NB))
+
+
+def test_extend_packed_kernel_equals_plain(cuda):
+    R, W, N = 504, 256, 64
+    rng = np.random.default_rng(4)
+    BW = K1.bw_for(R, W)
+    a = rng.integers(0, 4, (N, R)).astype(np.uint8)
+    b = rng.integers(0, 4, (N, BW)).astype(np.uint8)
+    b[::2, W : W + R // 2] = a[::2, : R // 2]
+    meta5 = np.stack([rng.integers(R // 2, int(1.1 * R), N), np.arange(N) % 3,
+                      rng.integers(R // 2, R + 1, N),
+                      np.full(N, -K1.DIAG_UNBOUNDED), np.full(N, K1.DIAG_UNBOUNDED)])
+    meta5[4, ::5] = 25
+    num_k = np.array([R, int(1.04 * R), int(0.97 * R)], np.int32)
+    c = torch.from_numpy(np.concatenate([pack2bit(a), pack2bit(b)], 1)).to(cuda)
+    m = torch.from_numpy(meta5.astype(np.int32)).to(cuda)
+    n0 = K1.packed_launches
+    got = K1.extend_packed(c, m, num_k, R=R, W=W)
+    torch.cuda.synchronize()
+    assert K1.packed_launches == n0 + 1
+    assert torch.equal(got, K1.extend_packed_reference(c, m, num_k, R=R, W=W))
+
+
+@pytest.mark.parametrize("T,RL,N,lead_free", [(512, 1024, 16, -1),
+                                               (192, 384, 256, 16)])
+def test_nw_round_packed_kernel_equals_plain(cuda, T, RL, N, lead_free):
+    tpl, t_lens, reads, r_lens, centers = _lanes(5, T, RL, N)
+    steps = np.diff(centers, axis=0).astype(np.uint8).T
+    chars = np.concatenate([pack2bit(np.ascontiguousarray(tpl.T)),
+                            pack2bit(reads), pack2bit(steps)], 1)
+    meta = np.stack([t_lens, r_lens, centers[0]]).astype(np.int32)
+    c, m = torch.from_numpy(chars).to(cuda), torch.from_numpy(meta).to(cuda)
+    kw = dict(T=T, RL=RL, W=128, S=T + RL, NWIN=-(-T // 126),
+              lead_free=lead_free)
+    n0 = K2.packed_launches
+    got = K2.nw_round_packed(c, m, **kw)
+    torch.cuda.synchronize()
+    assert K2.packed_launches == n0 + 1
+    for g, r in zip(got, K2.nw_round_packed_reference(c, m, **kw)):
+        assert g.dtype == r.dtype and torch.equal(g, r)
+
+
+def test_nw_dist_packed_kernel_equals_plain(cuda):
+    TW, TWp, RW, NB, V = 34, 36, 48, 8, 64
+    rng = np.random.default_rng(6)
+    buf = rng.integers(0, 4, (V, 2 * TWp + NB * RW)).astype(np.uint8)
+    meta = np.concatenate([rng.integers(0, TW + 1, (V, 2)),
+                           rng.integers(0, RW + 1, (V, NB))], axis=1)
+    c = torch.from_numpy(pack2bit(buf)).to(cuda)
+    m = torch.from_numpy(meta.astype(np.int32)).to(cuda)
+    n0 = K3.packed_launches
+    got = K3.nw_dist_pairs_packed(c, m, TW=TW, TWp=TWp, RW=RW, NB=NB)
+    torch.cuda.synchronize()
+    assert K3.packed_launches == n0 + 1
+    assert torch.equal(got, K3.nw_dist_pairs_packed_reference(c, m, TW, TWp,
+                                                              RW, NB))

@@ -38,7 +38,8 @@ def _run(code: str, *args, cwd=ROOT):
 def test_port_imports_without_jax():
     proc = _run(_BLOCK_JAX + """
 import dentist_tpu_torch, dentist_tpu_torch.pipeline, dentist_tpu_torch.__main__
-import dentist_tpu_torch.scenarios
+import dentist_tpu_torch.scenarios, dentist_tpu_torch.parallel.dp
+import dentist_tpu_torch.dryrun, dentist_tpu_torch.ops.pack2
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
 print("imported")
 """)

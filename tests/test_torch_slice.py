@@ -8,6 +8,9 @@ tandem masks, consensus sequences and per-window diffs, and the
 gap-closed FASTA, AGP and BED rows.
 """
 
+import hashlib
+import json
+
 import numpy as np
 import pytest
 
@@ -83,16 +86,15 @@ def test_consensus_batch_equals_jax():
         np.testing.assert_array_equal(a.coverage, b.coverage)
 
 
-def test_close_gaps_equals_jax():
-    """The whole pipeline on a cut-down ``tests/test_e2e.py`` scenario
-    (30 kb genome, 1 gap, 20x 10 kb reads at 13 % error)."""
-    from dentist_tpu import pipeline as jax_pipeline
+def close_gaps_scenario():
+    """A cut-down ``tests/test_e2e.py`` scenario (30 kb genome, 1 gap,
+    20x 10 kb reads at 13 % error) as ``close_gaps``'s first four
+    arguments."""
     from dentist_tpu.io.fasta import FastaRecord
     from dentist_tpu.models.sequences import SeqStore, split_scaffolds
     from dentist_tpu.sim.genome import random_genome
     from dentist_tpu.sim.partial import build_partial_assembly, random_gaps
     from dentist_tpu.sim.reads import simulate_reads
-    from dentist_tpu_torch import pipeline as port_pipeline
 
     truth = [random_genome(30_000, seed=50)]
     gaps = random_gaps(truth, n_gaps=1, min_size=80, max_size=300, margin=8000,
@@ -105,13 +107,36 @@ def test_close_gaps_equals_jax():
     reads = SeqStore(np.concatenate(read_list),
                      np.array([len(r) for r in read_list]),
                      [f"read{i + 1}" for i in range(len(read_list))])
+    return contigs, structure, reads, read_list
 
-    res_j = jax_pipeline.close_gaps(contigs, structure, reads, read_list,
+
+def close_gaps_digest(result) -> str:
+    """sha256 of ``json.dumps([records, agp_rows, bed_rows])``."""
+    got = json.dumps([result.records, result.agp_rows, result.bed_rows])
+    return hashlib.sha256(got.encode()).hexdigest()
+
+
+#: ``close_gaps_digest`` of the JAX package's single-device ``close_gaps``
+#: on ``close_gaps_scenario()`` (JAX on its CPU backend), which closes the
+#: one gap; ``test_close_gaps_equals_jax`` holds it against a live JAX run
+#: and ``test_torch_parallel.py`` holds the port's ranks against it
+JAX_CLOSE_GAPS_SHA256 = (
+    "3cb6f8b5680cec4b5a2126b33ac02b0606e172f4dc4c1f5b391dddea86558390")
+
+
+def test_close_gaps_equals_jax():
+    """The whole pipeline on ``close_gaps_scenario()``."""
+    from dentist_tpu import pipeline as jax_pipeline
+    from dentist_tpu_torch import pipeline as port_pipeline
+
+    args = close_gaps_scenario()
+    res_j = jax_pipeline.close_gaps(*args,
                                     jax_pipeline.PipelineConfig(read_coverage=20.0))
-    res_p = port_pipeline.close_gaps(contigs, structure, reads, read_list,
+    res_p = port_pipeline.close_gaps(*args,
                                      port_pipeline.PipelineConfig(read_coverage=20.0))
     assert res_j.n_closed_gaps == 1
     assert res_p.n_closed_gaps == res_j.n_closed_gaps
     assert res_p.records == res_j.records
     assert res_p.agp_rows == res_j.agp_rows
     assert res_p.bed_rows == res_j.bed_rows
+    assert close_gaps_digest(res_j) == JAX_CLOSE_GAPS_SHA256
