@@ -7,25 +7,34 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. Device: a CUDA GPU must be present; prints the card's
    ``nvidia-smi --query-gpu=name,power.limit`` line.
-2. Build: compiles the three kernels from ``dentist_tpu_torch/csrc/``.
-3. Kernels: each kernel, in its store/unpacked mode and its 2-bit packed
-   mode (K1p, K2p full and windowed, K3p), against its plain PyTorch
-   version on the card, on seeded inputs at the main path's shapes.  The
-   DPs are integer, so the tolerance is 0: every output must be equal.
-   Prints each mode's time beside its plain version's.
+2. Build: compiles the kernels from ``dentist_tpu_torch/csrc/``, one
+   ``nvcc`` per source, all started together.
+3. Kernels: each kernel, in each of its modes (K1 and K1p, K2 and K2p
+   full and windowed, K2r, K3 and K3p, K4 and K4w sparse and dense, K5),
+   against its plain PyTorch version on the card, on seeded inputs at the
+   main path's shapes.  The kernels are integer, so the tolerance is 0:
+   every output must be equal.  Prints each mode's time beside its plain
+   version's and its bound (the least time the card could take: bytes
+   over HBM bandwidth or integer operations over the INT32 issue rate,
+   whichever is larger).
 4. Main path, small: the 60 kb / 3-gap scenario of ``tests/test_e2e.py``
    through ``python -m dentist_tpu_torch pipeline``; the output FASTA,
    AGP and BED must hash to the JAX package's outputs.
 5. Main path, real size: the 3 Mb / 16-gap scenario of ``bench.py``
-   phase A through ``run_pipeline``; every kernel must have launched,
-   the gaps closed (byte-exact against the simulated truth) must be at
-   least as many as the JAX package closes, and the FASTA, AGP and BED
-   must hash to the JAX package's outputs.
+   phase A through ``run_pipeline``, on the default consensus transport
+   (store-resident windows, sparse result blocks, 2-bit store uploads);
+   every kernel of that path (K1, K2p, K2r, K3p, K4, K4w, K5) must have
+   launched, the gaps closed (byte-exact against the simulated truth)
+   must be at least as many as the JAX package closes, and the FASTA,
+   AGP and BED must hash to the JAX package's outputs.
 6. Profile: ``PROFILE_CALLS`` more phase-A runs in the same process, the
-   last under ``torch.profiler``; each must hash as phase 5's did.
+   last under ``torch.profiler``, then one with
+   ``DENTIST_TPU_DENSE_CONS=1``; each must hash as phase 5's did.
    Prints each run's wall seconds, the device's busy share of the
-   profiled run, by kernel and copy, and the host seconds of its 2-bit
-   packing.
+   profiled run, by kernel and copy, the host seconds of its 2-bit
+   packing, and the consensus host sections (window building, block
+   decoding, stitching) and fetch bytes of the last default call and
+   of the dense call.
 7. Host windows: the 60 kb scenario through ``run_pipeline`` with the
    process's device store built too small for it, so every extension
    flush ships 2-bit packed host windows (K1p); the outputs must hash as
@@ -33,16 +42,22 @@ Phases (any failure exits non-zero and prints no result line):
 8. Two ranks on one card: two ``dentist_tpu_torch.dryrun`` workers on
    ``cuda:0`` in a gloo group run the 60 kb scenario through
    ``run_pipeline``, every dispatch split over both; rank 0's outputs
-   must hash as in phase 4, and each rank must have launched K1p, K2p
-   and K3p on its own lanes.  Then one NCCL lane gather in a one-rank
-   group on the card.
+   must hash as in phase 4, and each rank must have launched K1p, K2p,
+   K3p and the sparse K4 and K4w on its own lanes (a group gathers sparse
+   blocks; its windows are host-built).  Then one NCCL lane gather in a
+   one-rank group on the card.
+9. Dense transport: the 60 kb scenario through ``run_pipeline`` with
+   ``DENTIST_TPU_DENSE_CONS=1`` (host windows, dense blocks); the outputs
+   must hash as in phase 4.
 
-The last two lines of standard output are the kernels' JSON record and
-``{"ok": true, "device": {...}}``.  The record has one entry per kernel
-mode that a path runs, with that mode's launches and times: K1 (store
-mode) and K2p, K3p (2-bit modes) on the main path, K1p in phase 7.  K2
-and K3 run only in their 2-bit modes now; their unpacked modes are the
-oracles phase 3 holds K2p and K3p against, and are timed in its log.
+The last lines of standard output are the card's ``nvidia-smi`` line,
+the kernels' JSON record and ``{"ok": true, "device": {...}}``.  The
+record has one entry per kernel mode that a path runs, with that mode's
+launches in the run that drives it and its times and bound from phase 3:
+K1, K2p, K2r, K3p, K4 and K4w sparse, K5 on the main path (phase 5), K1p
+in phase 7, K4 and K4w dense in phase 9.  K2 and K3 run only in their
+2-bit modes; their unpacked modes are the oracles phase 3 holds K2p and
+K3p against, and are timed in its log.
 """
 
 import hashlib
@@ -80,6 +95,13 @@ PHASE_A_SHA256 = {
 #: phase-6 runs: the later calls of a process, without its first-call costs
 PROFILE_CALLS = 3
 
+#: the card's HBM bandwidth (bytes/s), for the bounds
+HBM_BYTES_PER_S = 3.35e12
+#: integer operations per cell or column that the bounds count, per
+#: kernel: the recurrence's compares, adds, mins and selects (K1 adds the
+#: score key and its max), or a packing's per-column work
+OPS_PER_CELL = {"K1": 12, "K2": 10, "K3": 6, "K4": 8, "K5": 3}
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -111,10 +133,30 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def hold(what: str, kernel, plain, reps: int) -> dict:
+#: INT32 operations per second of the card, set in phase 1: SMs × 64
+#: INT32 lanes × the maximum SM clock
+INT_OPS_PER_S = None
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take for work that moves ``nbytes``
+    (each input read once, each output written once) and does ``ops``
+    integer operations: the larger of the two times, and which it is."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / INT_OPS_PER_S
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def hold(what: str, kernel, plain, reps: int, work: dict) -> dict:
     """``kernel()`` against ``plain()`` on the card (tolerance 0); the
     kernel's mean ms by CUDA events over ``reps`` launches, the plain
-    version's by host clock over one call."""
+    version's by host clock over one call; ``work`` is the case's
+    :func:`bound`."""
     import torch
 
     got = kernel()
@@ -126,14 +168,19 @@ def hold(what: str, kernel, plain, reps: int) -> dict:
     err = max_abs_err(got, ref)
     if err:
         fail(f"{what}: kernel != plain (max abs err {err})")
-    return {"err": err, "ms": cuda_ms(kernel, reps), "plain_ms": plain_ms,
-            "out": got}
+    st = {"err": err, "ms": cuda_ms(kernel, reps), "plain_ms": plain_ms,
+          "out": got, **work}
+    log(f"{what}: equal to plain (tolerance 0); kernel {st['ms']:.3f} ms, "
+        f"plain {plain_ms:.1f} ms, bound {st['bound_ms']:.4f} ms "
+        f"({st['bound_by']})")
+    return st
 
 
 def merge(stats: dict, new: dict) -> dict:
-    """Keep the worst error and the last case's times."""
+    """Keep the worst error and the last case's times and bound."""
     return {"err": max(stats.get("err", 0), new["err"]), "ms": new["ms"],
-            "plain_ms": new["plain_ms"]}
+            "plain_ms": new["plain_ms"], "bound_ms": new["bound_ms"],
+            "bound_by": new["bound_by"]}
 
 
 def launch_counts() -> dict:
@@ -143,11 +190,9 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
-    from dentist_tpu_torch.ops import banded, nw_dist, nw_round
+    from dentist_tpu_torch.dryrun import reset_launch_counts as reset
 
-    for mod in (banded, nw_round, nw_dist):
-        mod.launches = 0
-        mod.packed_launches = 0
+    reset()
 
 
 def max_abs_err(got, ref) -> int:
@@ -305,11 +350,69 @@ def k2p_pack(args, window: bool):
     return torch.from_numpy(chars).cuda(), torch.from_numpy(meta).cuda()
 
 
+def k1_work(meta, R: int, W: int, packed: bool) -> dict:
+    """K1's bound: the band cells of every lane's rows up to its a_len;
+    A and B windows (packed: their 2-bit rows) and meta in, the result
+    block out."""
+    from dentist_tpu_torch.ops.banded import bw_for
+
+    N = meta.shape[1]
+    BW = bw_for(R, W)
+    cells = int(meta[2].clamp(0, R).sum()) * W
+    win = N * (R + BW) // 4 if packed else N * (R + BW)
+    io = win + nbytes(meta) + N * 4 * (4 + R // 126)
+    return bound(io, OPS_PER_CELL["K1"] * cells)
+
+
+def k2_work(t_lens, T: int, W: int, NWIN: int, inputs: int) -> dict:
+    """K2's bound (every mode): the band cells of every lane's template
+    rows; ``inputs`` bytes in, the seven fields out."""
+    N = t_lens.numel()
+    cells = int(t_lens.clamp(0, T).sum()) * W
+    out = N * (T + 8 * (T + 1) + 8 + 4 + 4 * NWIN + 1)
+    return bound(inputs + out, OPS_PER_CELL["K2"] * cells)
+
+
+def k4_work(N: int, T: int, NWIN: int, tpl_bytes: int, out_words: int) -> dict:
+    """K4's and K4w's bound: the fields of T columns per lane and the
+    template (or centers) in, the blocks out."""
+    fields = N * (T + 8 * (T + 1) + 8 + 4 + 4 * NWIN + 1)
+    return bound(fields + tpl_bytes + 4 * N * out_words,
+                 OPS_PER_CELL["K4"] * N * (T + 1))
+
+
+def resident_case(store, rng, N: int):
+    """Windowed lanes in the device store: N template windows (130..192
+    chars) and mutated read segments with up to 8 leading slack chars,
+    uploaded through ``offset_of`` (K5); (5, N) coordinates as the
+    default windowed rounds ship them."""
+    import torch
+
+    T, RL = 192, 384
+    tpl = rng.integers(0, 4, (N, T)).astype(np.uint8)
+    seg = np.zeros((N, RL), np.uint8)
+    meta = np.zeros((5, N), np.int32)
+    for n in range(N):
+        L = T if n % 3 else int(rng.integers(130, T + 1))
+        t = tpl[n, :L]
+        keep = rng.random(L) > 0.04
+        r = t[keep]
+        ins = rng.random(len(r)) < 0.07
+        r = np.insert(r, np.flatnonzero(ins), rng.integers(0, 4, int(ins.sum())))
+        sub = rng.random(len(r)) < 0.03
+        r[sub] = rng.integers(0, 4, int(sub.sum()))
+        r = np.concatenate([rng.integers(0, 4, int(rng.integers(0, 9))), r])[:RL]
+        seg[n, : len(r)] = r
+        meta[:, n] = (L, len(r), min(33, L - 126), n * T, n * RL)
+    meta[3] += store.offset_of(tpl.reshape(-1), cache=False)
+    meta[4] += store.offset_of(seg.reshape(-1), cache=False)
+    return torch.from_numpy(meta).cuda()
+
+
 def phase_kernels():
     import torch
 
-    from dentist_tpu_torch.ops import banded, nw_dist, nw_round
-
+    from dentist_tpu_torch.ops import banded, nw_dist, nw_round, round_pack
     from dentist_tpu_torch.ops.pack2 import pack2bit
 
     rng = np.random.default_rng(2024)
@@ -321,56 +424,150 @@ def phase_kernels():
     for R, N in ((1512, 128), (13608, 1024)):
         for bounded in (False, True):
             meta, num_k = k1_case(store, rng, R, N, bounded)
-            st = hold(f"K1 extend R={R} N={N} bounded={bounded}",
+            st = hold(f"K1 extend R={R} N={N} diag_bounds={bounded}",
                       lambda: banded.extend(store.array, meta, num_k, R=R, W=256),
                       lambda: banded.extend_reference(store.array, meta, num_k,
-                                                      R=R, W=256), 3)
-            aligned = int((st["out"][3] > 0).sum())
-            log(f"K1 extend R={R} N={N} diag_bounds={bounded}: equal "
-                f"(tolerance 0), {aligned}/{N} lanes aligned; kernel "
-                f"{st['ms']:.3f} ms, plain {st['plain_ms']:.1f} ms")
+                                                      R=R, W=256), 3,
+                      k1_work(meta, R, 256, False))
+            log(f"  {int((st['out'][3] > 0).sum())}/{N} lanes aligned")
             k1 = merge(k1, st)
             chars, meta5, num_k = k1p_case(rng, R, N, bounded)
-            st = hold(f"K1p extend_packed R={R} N={N} bounded={bounded}",
+            st = hold(f"K1p extend_packed R={R} N={N} diag_bounds={bounded}",
                       lambda: banded.extend_packed(chars, meta5, num_k, R=R, W=256),
                       lambda: banded.extend_packed_reference(chars, meta5, num_k,
-                                                             R=R, W=256), 3)
-            aligned = int((st["out"][3] > 0).sum())
-            log(f"K1p extend_packed R={R} N={N} diag_bounds={bounded}: equal "
-                f"(tolerance 0), {aligned}/{N} lanes aligned; kernel "
-                f"{st['ms']:.3f} ms, plain {st['plain_ms']:.1f} ms")
+                                                             R=R, W=256), 3,
+                      k1_work(meta5, R, 256, True))
+            log(f"  {int((st['out'][3] > 0).sum())}/{N} lanes aligned")
             k1p = merge(k1p, st)
     rows.append(("K1 extend", "dentist_tpu_torch/csrc/extend.cu",
                  "dentist_tpu/ops/banded.py:62", "main", "K1", k1))
     rows.append(("K1p extend_packed", "dentist_tpu_torch/csrc/extend.cu",
                  "dentist_tpu/ops/banded.py:249", "host_windows", "K1p", k1p))
 
-    # K2 and K2p: a full round and a windowed round
-    k2p = {}
-    for T, RL, N, lead_free, window in ((512, 1024, 32, -1, False),
-                                        (192, 384, 2048, 16, True)):
+    # K2 and K2p, a windowed round and a full round; K4w and K4 pack
+    # K2p's fields (K4 also at the 4 kb template bucket).  The main path
+    # runs K2p on full rounds, so the full round is K2p's last case
+    k2p, k4s, k4d, k4ws, k4wd = {}, {}, {}, {}, {}
+    for T, RL, N, lead_free, window in ((192, 384, 2048, 16, True),
+                                        (512, 1024, 32, -1, False),
+                                        (4096, 8192, 512, -1, False)):
+        NWIN = -(-T // 126)
+        kw = dict(T=T, W=128, S=T + RL, NWIN=NWIN, lead_free=lead_free)
         args = nw_lanes(rng, T, RL, N, window)
-        kw = dict(T=T, W=128, S=T + RL, NWIN=-(-T // 126), lead_free=lead_free)
-        st = hold(f"K2 nw_round T={T} N={N}",
-                  lambda: nw_round.nw_round(*args, **kw),
-                  lambda: nw_round.nw_round_reference(*args, **kw), 3)
-        log(f"K2 nw_round T={T} RL={RL} N={N} lead_free={lead_free}: equal "
-            f"(tolerance 0), {int(st['out'][6].sum())}/{N} lanes covered; "
-            f"kernel {st['ms']:.3f} ms, plain {st['plain_ms']:.1f} ms")
-        unpacked = st["out"]
         chars, meta = k2p_pack(args, window)
-        st = hold(f"K2p nw_round_packed T={T} N={N}",
-                  lambda: nw_round.nw_round_packed(chars, meta, RL=RL, **kw),
-                  lambda: nw_round.nw_round_packed_reference(chars, meta, RL=RL,
-                                                             **kw), 3)
-        if max_abs_err(st["out"], unpacked):
-            fail(f"K2p != K2 on the same lanes at T={T} N={N}")
-        log(f"K2p nw_round_packed T={T} RL={RL} N={N} lead_free={lead_free}: "
-            f"equal to plain and to K2 (tolerance 0); kernel {st['ms']:.3f} ms, "
-            f"plain {st['plain_ms']:.1f} ms")
-        k2p = merge(k2p, st)
+        work = k2_work(args[1], T, 128, NWIN, nbytes(chars, meta))
+        if T <= 512 or window:  # the unpacked K2 and K2p's plain version
+            st = hold(f"K2 nw_round T={T} RL={RL} N={N}",
+                      lambda: nw_round.nw_round(*args, **kw),
+                      lambda: nw_round.nw_round_reference(*args, **kw), 3,
+                      k2_work(args[1], T, 128, NWIN, nbytes(*args)))
+            log(f"  {int(st['out'][6].sum())}/{N} lanes covered")
+            unpacked = st["out"]
+            st = hold(f"K2p nw_round_packed T={T} RL={RL} N={N}",
+                      lambda: nw_round.nw_round_packed(chars, meta, RL=RL, **kw),
+                      lambda: nw_round.nw_round_packed_reference(
+                          chars, meta, RL=RL, **kw), 3, work)
+            if max_abs_err(st["out"], unpacked):
+                fail(f"K2p != K2 on the same lanes at T={T} N={N}")
+            k2p = merge(k2p, st)
+        cen = torch.empty((N, T + 1), dtype=torch.int32, device="cuda")
+        fields = nw_round.nw_round_packed(chars, meta, RL=RL, centers_out=cen,
+                                          **kw)
+        if window:
+            for sparse in (True, False):
+                words = 42 if sparse else 112
+                st = hold(f"K4w window_pack sparse={sparse} N={N}",
+                          lambda: round_pack.window_pack(
+                              chars, meta, fields[:3], cen, sparse, False),
+                          lambda: round_pack.window_pack_reference(
+                              chars, meta, fields[:3], cen, sparse, False), 10,
+                          k4_work(N, 126, 0, N * (32 if sparse else 4 * 127),
+                                  words))
+                if sparse:
+                    k4ws = merge(k4ws, st)
+                else:
+                    k4wd = merge(k4wd, st)
+            continue
+        for sparse in (True, False):
+            words = (round_pack.sparse_words(T, NWIN) if sparse
+                     else round_pack.dense_words(T, NWIN))
+            st = hold(f"K4 round_pack T={T} N={N} sparse={sparse}",
+                      lambda: round_pack.round_pack(chars, fields, cen, T, RL,
+                                                    NWIN, sparse),
+                      lambda: round_pack.round_pack_reference(
+                          chars, fields, cen, T, RL, NWIN, sparse), 10,
+                      k4_work(N, T, NWIN, N * (T // 4 if sparse else 4 * (T + 1)),
+                              words))
+            ovf = int(st["out"][:, words - NWIN - 1].sum()) if sparse else 0
+            log(f"  {ovf}/{N} lanes over the sparse caps" if sparse else
+                "  dense block")
+            if sparse:
+                k4s = merge(k4s, st)
+            else:
+                k4d = merge(k4d, st)
+
+    # K2r and the resident K4w: windowed lanes in the device store
+    N, T, RL = 2048, 192, 384
+    meta = resident_case(store, rng, N)
+    kw = dict(T=T, RL=RL, W=128, S=T + RL, NWIN=2, lead_free=16)
+    cen = torch.empty((N, T + 1), dtype=torch.int32, device="cuda")
+
+    def k2r_plain():
+        tpl, reads, tl, sl, c, _ = nw_round.window_resident_inputs(
+            store.array, meta, T, RL)
+        return nw_round.nw_round_reference(tpl, tl, reads, sl, c, T, 128,
+                                           T + RL, 2, 16)
+
+    win_bytes = int(meta[0].sum() + meta[1].sum())
+    k2r = hold(f"K2r nw_round_resident N={N}",
+               lambda: nw_round.nw_round_resident(store.array, meta, **kw),
+               k2r_plain, 3,
+               k2_work(meta[0], T, 128, 2, nbytes(meta) + win_bytes))
+    fields = nw_round.nw_round_resident(store.array, meta, centers_out=cen, **kw)
+    for sparse in (True, False):
+        st = hold(f"K4w window_pack resident sparse={sparse} N={N}",
+                  lambda: round_pack.window_pack(store.array, meta, fields[:3],
+                                                 cen, sparse, True),
+                  lambda: round_pack.window_pack_reference(
+                      store.array, meta, fields[:3], cen, sparse, True), 10,
+                  k4_work(N, 126, 0, N * (126 if sparse else 4 * 127),
+                          42 if sparse else 112))
+        if sparse:
+            k4ws = merge(k4ws, st)
+        else:
+            k4wd = merge(k4wd, st)
+
+    # K5: one 4 Mi-char chunk of a store upload
+    n = banded._ARENA_CHUNK
+    packed = torch.from_numpy(rng.integers(0, 256, n // 4).astype(np.uint8)).cuda()
+    dst_k = torch.zeros(2 * n, dtype=torch.uint8, device="cuda")
+    dst_p = torch.zeros(2 * n, dtype=torch.uint8, device="cuda")
+
+    def k5_kernel():
+        banded.store_write(packed, dst_k, 4096)
+        return dst_k
+
+    def k5_plain():
+        banded.store_write_reference(packed, dst_p, 4096)
+        return dst_p
+
+    k5 = hold(f"K5 store_write n={n}", k5_kernel, k5_plain, 10,
+              bound(n // 4 + n, OPS_PER_CELL["K5"] * n))
+
     rows.append(("K2p nw_round_packed", "dentist_tpu_torch/csrc/nw_round.cu",
                  "dentist_tpu/ops/consensus.py:491", "main", "K2p", k2p))
+    rows.append(("K2r nw_round_resident", "dentist_tpu_torch/csrc/nw_round.cu",
+                 "dentist_tpu/ops/consensus.py:945", "main", "K2r", k2r))
+    rows.append(("K4 round_pack sparse", "dentist_tpu_torch/csrc/round_pack.cu",
+                 "dentist_tpu/ops/consensus.py:397", "main", "K4", k4s))
+    rows.append(("K4 round_pack dense", "dentist_tpu_torch/csrc/round_pack.cu",
+                 "dentist_tpu/ops/consensus.py:318", "dense", "K4dense", k4d))
+    rows.append(("K4w window_pack sparse", "dentist_tpu_torch/csrc/round_pack.cu",
+                 "dentist_tpu/ops/consensus.py:1023", "main", "K4w", k4ws))
+    rows.append(("K4w window_pack dense", "dentist_tpu_torch/csrc/round_pack.cu",
+                 "dentist_tpu/ops/consensus.py:914", "dense", "K4wdense", k4wd))
+    rows.append(("K5 store_write", "dentist_tpu_torch/csrc/store_write.cu",
+                 "dentist_tpu/ops/banded.py:448", "main", "K5", k5))
 
     # K3 and K3p: the polish scorer at V = 256 candidates
     k3p = {}
@@ -392,23 +589,22 @@ def phase_kernels():
                 buf[v, 2 * TWp + nb * RW : 2 * TWp + nb * RW + wl] = r
                 meta[v, 2 + nb] = wl
         b, m = torch.from_numpy(buf).cuda(), torch.from_numpy(meta).cuda()
+        # cells: both templates' rows times each read's columns
+        cells = int(((m[:, :1] + m[:, 1:2]) * (m[:, 2:] + 1)).sum())
+        out_b = 2 * V * NB * 4
         st = hold(f"K3 nw_dist V={V} NB={NB}",
                   lambda: nw_dist.nw_dist_pairs(b, m, TW, TWp, RW, NB),
                   lambda: nw_dist.nw_dist_pairs_reference(b, m, TW, TWp, RW, NB),
-                  10)
-        log(f"K3 nw_dist V={V} NB={NB}: equal (tolerance 0); kernel "
-            f"{st['ms']:.3f} ms, plain {st['plain_ms']:.1f} ms")
+                  10, bound(nbytes(b, m) + out_b, OPS_PER_CELL["K3"] * cells))
         unpacked = st["out"]
         p = torch.from_numpy(pack2bit(buf)).cuda()
         st = hold(f"K3p nw_dist_packed V={V} NB={NB}",
                   lambda: nw_dist.nw_dist_pairs_packed(p, m, TW, TWp, RW, NB),
                   lambda: nw_dist.nw_dist_pairs_packed_reference(p, m, TW, TWp,
-                                                                 RW, NB), 10)
+                                                                 RW, NB), 10,
+                  bound(nbytes(p, m) + out_b, OPS_PER_CELL["K3"] * cells))
         if max_abs_err(st["out"], unpacked):
             fail(f"K3p != K3 on the same rows at NB={NB}")
-        log(f"K3p nw_dist_packed V={V} NB={NB}: equal to plain and to K3 "
-            f"(tolerance 0); kernel {st['ms']:.3f} ms, plain "
-            f"{st['plain_ms']:.1f} ms")
         k3p = merge(k3p, st)
     rows.append(("K3p nw_dist_packed", "dentist_tpu_torch/csrc/nw_dist.cu",
                  "dentist_tpu/ops/consensus.py:2065", "main", "K3p", k3p))
@@ -492,10 +688,10 @@ def phase_a(tmp: str) -> dict:
         if got != want:
             fail(f"3 Mb scenario: {name} sha256 {got} != JAX {want}")
     log("  FASTA, AGP and BED equal to the JAX package's (sha256)")
-    for kernel in ("K1", "K2", "K3"):  # each kernel, in either mode
-        if launches[kernel] + launches[kernel + "p"] <= 0:
-            fail(f"kernel {kernel} was not launched on the main path")
-    for mode in ("K2p", "K3p"):  # consensus ships packed inputs
+    # the default path: resident K1, packed full rounds (K2p) and polish
+    # (K3p), store-resident windows (K2r), sparse blocks (K4, K4w), 2-bit
+    # store uploads (K5)
+    for mode in ("K1", "K2p", "K2r", "K3p", "K4", "K4w", "K5"):
         if launches[mode] <= 0:
             fail(f"{mode} was not launched on the main path")
     if result.n_closed_gaps < PHASE_A_JAX_CLOSED:
@@ -505,31 +701,64 @@ def phase_a(tmp: str) -> dict:
     return launches
 
 
+def consensus_sections(sections: dict) -> dict:
+    """The consensus host sections of the port's ``prof`` counters:
+    name → [seconds, hits, bytes]."""
+    return {k: [round(v[0], 4), v[1], v[2]] for k, v in sorted(sections.items())
+            if k.startswith(("cons.", "process."))}
+
+
 def phase_profile(tmp: str, calls: int) -> None:
-    """``calls`` more phase-A runs, the last under ``torch.profiler``.
-    The device is busy where any kernel or copy runs: the union of their
-    intervals, against the profiled run's wall."""
+    """``calls`` more phase-A runs, the last under ``torch.profiler``,
+    then one with ``DENTIST_TPU_DENSE_CONS=1``.  The device is busy where
+    any kernel or copy runs: the union of their intervals, against the
+    profiled run's wall.  The port's section counters (``utils/prof``)
+    are on for these runs: the consensus host sections of the last
+    default call and of the dense call are printed side by side."""
     import contextlib
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from dentist_tpu_torch.ops import pack2
+    from dentist_tpu_torch.utils import prof as sections
 
     d = os.path.join(tmp, "phase_a")
     asm, reads = (os.path.join(d, f) for f in ("assembly.fasta", "reads.fasta"))
     walls = []
-    for i in range(calls):
-        last = i == calls - 1
-        pack2.seconds, pack2.calls = 0.0, 0
-        with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-              if last else contextlib.nullcontext()) as prof:
-            _, out, wall = run_phase_a(d, asm, reads, f"_profile{i}")
-        walls.append(wall)
-        for name, want in PHASE_A_SHA256.items():
-            got = sha256(out[: -len("fasta")] + name[len("out."):])
-            if got != want:
-                fail(f"profiled 3 Mb run {i}: {name} sha256 {got} != JAX {want}")
+    sections.ENABLED = True
+    try:
+        for i in range(calls + 1):
+            last = i == calls - 1
+            dense = i == calls
+            pack2.seconds, pack2.calls = 0.0, 0
+            sections._acc.clear()
+            if dense:
+                os.environ["DENTIST_TPU_DENSE_CONS"] = "1"
+            try:
+                with (profile(activities=[ProfilerActivity.CPU,
+                                          ProfilerActivity.CUDA])
+                      if last else contextlib.nullcontext()) as p:
+                    _, out, wall = run_phase_a(d, asm, reads, f"_profile{i}")
+            finally:
+                os.environ.pop("DENTIST_TPU_DENSE_CONS", None)
+            for name, want in PHASE_A_SHA256.items():
+                got = sha256(out[: -len("fasta")] + name[len("out."):])
+                if got != want:
+                    fail(f"3 Mb run {i} (dense={dense}): {name} sha256 {got} "
+                         f"!= JAX {want}")
+            if last:
+                prof, default_sections = p, consensus_sections(sections._acc)
+                default_wall = wall
+                pack_ms, pack_calls = pack2.seconds * 1e3, pack2.calls
+            elif dense:
+                dense_sections, dense_wall = consensus_sections(sections._acc), wall
+            else:
+                walls.append(wall)
+    finally:
+        sections.ENABLED = False
+        sections._acc.clear()
+    walls.append(default_wall)
     dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not dev:
         fail("torch.profiler recorded no device activity")
@@ -549,8 +778,12 @@ def phase_profile(tmp: str, calls: int) -> None:
         f"({100 * busy_us / 1e6 / walls[-1]:.2f} %)")
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
         log(f"  {us / 1e3:10.2f} ms {n:6d}x  {name[:90]}")
-    log(f"  host 2-bit packing in the profiled run: {pack2.seconds * 1e3:.1f} ms "
-        f"over {pack2.calls} calls")
+    log(f"  host 2-bit packing in the profiled run: {pack_ms:.1f} ms "
+        f"over {pack_calls} calls")
+    log(f"consensus sections [s, hits, bytes], default transport "
+        f"({default_wall:.3f} s, profiled): {json.dumps(default_sections)}")
+    log(f"consensus sections [s, hits, bytes], DENTIST_TPU_DENSE_CONS=1 "
+        f"({dense_wall:.3f} s): {json.dumps(dense_sections)}")
 
 
 def check_e2e_hashes(d: str, what: str) -> None:
@@ -611,9 +844,11 @@ def phase_two_ranks(tmp: str) -> None:
     for r in ranks:
         log(f"two ranks on one card, rank {r['rank']}: kernel launches "
             f"{json.dumps(r['launches'])}")
-        for mode in ("K1p", "K2p", "K3p"):
+        for mode in ("K1p", "K2p", "K3p", "K4", "K4w"):
             if r["launches"][mode] <= 0:
                 fail(f"rank {r['rank']} launched no {mode} on its lanes")
+        if r["launches"]["K2r"]:
+            fail(f"rank {r['rank']} ran store-resident windows in a group")
     log(f"two ranks on one card, 60 kb / 3 gaps: rank 0's FASTA, AGP and BED "
         f"equal to the JAX package's (sha256), {time.perf_counter() - t0:.1f} s")
 
@@ -628,6 +863,38 @@ def phase_two_ranks(tmp: str) -> None:
     finally:
         dist.destroy_process_group()
     log("NCCL lane gather, one-rank group on the card: equal to its input")
+
+
+def phase_dense(tmp: str) -> dict:
+    """The 60 kb scenario on the dense transport
+    (``DENTIST_TPU_DENSE_CONS=1``): host-built windows (K2p) and dense
+    result blocks (K4 and K4w dense) only."""
+    from dentist_tpu_torch.pipeline import PipelineConfig, run_pipeline
+
+    asm, reads = (os.path.join(tmp, "e2e", f) for f in ("assembly.fasta",
+                                                        "reads.fasta"))
+    d = os.path.join(tmp, "e2e_dense")
+    os.makedirs(d)
+    reset_launch_counts()
+    os.environ["DENTIST_TPU_DENSE_CONS"] = "1"
+    t0 = time.perf_counter()
+    try:
+        run_pipeline(asm, reads, os.path.join(d, "out.fasta"),
+                     PipelineConfig(read_coverage=20.0))
+    finally:
+        os.environ.pop("DENTIST_TPU_DENSE_CONS", None)
+    launches = launch_counts()
+    check_e2e_hashes(d, "60 kb scenario on the dense transport")
+    log(f"dense transport, 60 kb / 3 gaps: FASTA, AGP and BED equal to the "
+        f"JAX package's (sha256), {time.perf_counter() - t0:.1f} s; kernel "
+        f"launches {json.dumps(launches)}")
+    for mode in ("K4dense", "K4wdense"):
+        if launches[mode] <= 0:
+            fail(f"dense transport: {mode} was not launched: {launches}")
+    for mode in ("K2r", "K4", "K4w"):
+        if launches[mode]:
+            fail(f"dense transport: {mode} was launched: {launches}")
+    return launches
 
 
 def main() -> None:
@@ -650,6 +917,14 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     log(smi)
+    global INT_OPS_PER_S
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    INT_OPS_PER_S = sms * 64 * clock_mhz * 1e6
+    log(f"bounds: {HBM_BYTES_PER_S / 1e12:.2f} TB/s HBM; INT32 {sms} SMs x 64 "
+        f"lanes x {clock_mhz:.0f} MHz = {INT_OPS_PER_S / 1e12:.2f} Tops/s")
 
     # 2. build
     t0 = time.perf_counter()
@@ -674,15 +949,19 @@ def main() -> None:
         host_windows = phase_host_windows(tmp)
         # 8. two ranks on the one card
         phase_two_ranks(tmp)
+        # 9. the dense consensus transport
+        dense = phase_dense(tmp)
 
     # each mode's launches in the run that drives it: phase 5 (the main
-    # path) for K1, K2p and K3p, phase 7 for K1p
-    runs = {"main": launches, "host_windows": host_windows}
+    # path), phase 7 for K1p, phase 9 for the dense K4 and K4w
+    runs = {"main": launches, "host_windows": host_windows, "dense": dense}
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": runs[run][mode],
                 "max_abs_err": stats["err"], "ms": stats["ms"],
-                "plain_ms": stats["plain_ms"]}
+                "plain_ms": stats["plain_ms"], "bound_ms": stats["bound_ms"],
+                "bound_by": stats["bound_by"], "library_ms": None}
                for name, src, rep, run, mode, stats in rows]
+    log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

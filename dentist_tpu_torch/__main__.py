@@ -1,6 +1,6 @@
 """``python -m dentist_tpu_torch pipeline ASM READS OUT [options]``.
 
-The command line of :mod:`dentist_tpu.cli` (its parser, prefix matching,
+The command line of the JAX package's CLI (:mod:`.cli`) (its parser, prefix matching,
 ``--config`` files and log levels) with the ``pipeline`` sub-command run
 by the port on the GPU.  The other sub-commands are not ported yet and
 exit with an error.
@@ -16,12 +16,11 @@ from __future__ import annotations
 
 import sys
 
-from dentist_tpu.cli import build_parser, resolve_command
-from dentist_tpu.config import apply_config, load_config
-from dentist_tpu.utils.log import set_log_level
-
+from .cli import build_parser, resolve_command
+from .config import apply_config, load_config
 from .device import set_device
 from .parallel.dp import rank_device
+from .utils.log import set_log_level
 
 __all__ = ["main"]
 

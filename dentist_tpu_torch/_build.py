@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels.
 
 The sources in ``csrc/*.cu`` have plain C entry points (no PyTorch
-headers), so one ``nvcc`` call builds them in seconds into one shared
-library under ``_build/``, named by a hash of the sources, their headers
-(``csrc/*.cuh``) and the flags: a changed source builds anew, an
-unchanged one loads the existing file.  Ranks of a process group that
+headers), so they build in seconds: one ``nvcc -c`` per source, all
+started together, then one link into a shared library under ``_build/``,
+named by a hash of the sources, their headers (``csrc/*.cuh``) and the
+flags: a changed source builds anew, an unchanged one loads the existing
+file.  Ranks of a process group that
 reach their first launch together build once: the build runs under an
 exclusive lock on a file beside the library, into a temporary file that
 is renamed into place, and a rank that waited on the lock loads what
@@ -35,8 +36,8 @@ __all__ = ["library", "build_once", "kernel_fn", "check", "launch_lock",
 _HERE = Path(__file__).resolve().parent
 _SRC = _HERE / "csrc"
 _OUT = _HERE / "_build"
-_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 #: guards the wrappers' launch counters: dispatch pools launch from
@@ -78,14 +79,29 @@ def library() -> ctypes.CDLL:
         def nvcc(tmp: Path) -> None:
             global build_seconds, build_log
             t0 = time.perf_counter()
-            proc = subprocess.run(
-                [_nvcc(), *_FLAGS, "-o", str(tmp), *map(str, sources)],
-                capture_output=True, text=True)
+            objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
+            try:
+                procs = [subprocess.Popen(
+                    [_nvcc(), *_FLAGS, "-c", str(src), "-o", str(obj)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                    for src, obj in zip(sources, objs)]
+                logs = [p.communicate()[0] for p in procs]
+                build_log = "".join(logs)
+                failed = [(src.name, p.returncode)
+                          for src, p in zip(sources, procs) if p.returncode]
+                if not failed:
+                    link = subprocess.run(
+                        [_nvcc(), *_ARCH, "-shared", "-o", str(tmp),
+                         *map(str, objs)], capture_output=True, text=True)
+                    build_log += link.stdout + link.stderr
+                    if link.returncode:
+                        failed = [("link", link.returncode)]
+            finally:
+                for obj in objs:
+                    obj.unlink(missing_ok=True)
             build_seconds = time.perf_counter() - t0
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise KernelError(f"nvcc failed ({proc.returncode}):\n"
-                                  f"{build_log}")
+            if failed:
+                raise KernelError(f"nvcc failed {failed}:\n{build_log}")
 
         if not so.exists():
             build_once(so, nvcc)

@@ -32,6 +32,19 @@
 // as rows.  Every thread decodes its characters through pack2.cuh and
 // rebuilds the band centers as the running sum of the steps, row by row;
 // thread 0 also stores them in a per-lane scratch row for its traceback.
+//
+// K2r, the resident window mode (kResident), replaces
+// consensus.py:_window_resident_inputs (945) together with the DP of
+// _nw_window_round_resident (1009) and _nw_window_round_resident_dense
+// (972): a windowed lane arrives as five int32 coordinates (meta rows
+// t_lens, seg_lens, loc0, tpl_start, seg_start) and every thread reads
+// its characters straight from the device store, tpl[k] = store[tpl_start
+// + k] (0 past t_len) and seg[k] = store[seg_start + k] (0 past seg_len),
+// with the starts clamped into the store as JAX's dynamic_slice clamps
+// them.  The band centers are JAX's proportional schedule, rebuilt row by
+// row as c(0) = 0, c(i) = c(i-1) + clip(p(i) - p(i-1), 0, 2) with p(r) =
+// min(r, t) * seg_len / t and t = max(t_len, 1); thread 0 stores them for
+// the traceback and for K4w, which packs the result rows.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -53,11 +66,16 @@ __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
 }
 
-// store mode: tpl (N, T), t_lens (N,), reads (N, RL), read_lens (N,) and
-// centers (N, T+1) as given.  Packed mode: tpl is the (N, (2T + RL)/4)
-// packed rows, t_lens the (3 | 4, N) meta rows, reads and read_lens
-// unused, centers a scratch row per lane that the kernel fills.
-template <bool kPacked>
+// The three input modes of one DP.
+enum Mode { kStore = 0, kPacked = 1, kResident = 2 };
+
+// kStore: tpl (N, T), t_lens (N,), reads (N, RL), read_lens (N,) and
+// centers (N, T+1) as given.  kPacked: tpl is the (N, (2T + RL)/4) packed
+// rows, t_lens the (3 | 4, N) meta rows, reads and read_lens unused,
+// centers a scratch row per lane that the kernel fills.  kResident: tpl
+// is the store of store_len bytes, t_lens the (5, N) meta rows, reads and
+// read_lens unused, centers a scratch row per lane that the kernel fills.
+template <int kMode>
 __global__ void nw_round_kernel(
     const uint8_t* __restrict__ tpl,
     const int* __restrict__ t_lens,
@@ -72,7 +90,9 @@ __global__ void nw_round_kernel(
     int* __restrict__ diffs,              // (N,)
     int* __restrict__ win,                // (N, NWIN)
     bool* __restrict__ covered,           // (N,)
-    int N, int T, int RL, int W, int S, int NWIN, int lead_free, int trace) {
+    int N, int T, int RL, int W, int S, int NWIN, int lead_free, int trace,
+    int store_len) {
+  constexpr bool kFromMeta = kMode != kStore;
   extern __shared__ int sh[];
   int* dbuf = sh;               // 2 * W
   int* wmin = sh + 2 * W;       // W / 32
@@ -82,27 +102,42 @@ __global__ void nw_round_kernel(
   const int p = threadIdx.x;
   const int lane = p & 31;
   const int warp = p >> 5;
-  const int rl = kPacked ? t_lens[N + n] : read_lens[n];
+  const int rl = kFromMeta ? t_lens[N + n] : read_lens[n];
   const int tl = t_lens[n];
   const int rl_clip = max(rl - W / 2, 0);
   int* cen = centers + (size_t)n * (T + 1);
-  const uint8_t* row = tpl + (size_t)n * ((2 * T + RL) / 4);
-  const uint8_t* rd = kPacked ? nullptr : reads + (size_t)n * RL;
-  const uint8_t* tp = kPacked ? nullptr : tpl + (size_t)n * T;
+  const uint8_t* row =
+      kMode == kPacked ? tpl + (size_t)n * ((2 * T + RL) / 4) : nullptr;
+  const uint8_t* rd = kMode == kStore ? reads + (size_t)n * RL : nullptr;
+  const uint8_t* tp = kMode == kStore ? tpl + (size_t)n * T : nullptr;
+  // kResident: the lane's windows in the store, starts clamped as
+  // jax.lax.dynamic_slice clamps them
+  const uint8_t* t_res = nullptr;
+  const uint8_t* s_res = nullptr;
+  const int tl1 = max(tl, 1);
+  if constexpr (kMode == kResident) {
+    t_res = tpl + clampi(t_lens[3 * N + n], 0, store_len - T);
+    s_res = tpl + clampi(t_lens[4 * N + n], 0, store_len - RL);
+  }
   uint8_t* mv_lane = moves + (size_t)n * T * W;
 
   auto off_from = [&](int c) { return min(max(c - W / 2, -(W / 2)), rl_clip); };
   auto t_char = [&](int k) {
-    if constexpr (kPacked) return code2(row, k);
+    if constexpr (kMode == kPacked) return code2(row, k);
+    else if constexpr (kMode == kResident) return k < tl ? t_res[k] & 3 : 0;
     else return tp[k] & 3;
   };
   auto r_char = [&](int k) {
-    if constexpr (kPacked) return code2(row, T + k);
+    if constexpr (kMode == kPacked) return code2(row, T + k);
+    else if constexpr (kMode == kResident) return k < rl ? s_res[k] & 3 : 0;
     else return rd[k] & 3;
   };
+  // kResident: the proportional schedule p(r) = min(r, t) * seg_len / t
+  auto prop = [&](int r) { return min(r, tl1) * rl / tl1; };
 
-  int c_run = kPacked ? t_lens[2 * N + n] : cen[0];
-  if (kPacked && p == 0) cen[0] = c_run;
+  int c_run = kMode == kPacked ? t_lens[2 * N + n]
+              : kMode == kResident ? 0 : cen[0];
+  if (kFromMeta && p == 0) cen[0] = c_run;
   int off_prev = off_from(c_run);
   {
     const int j0 = off_prev + p;
@@ -118,9 +153,12 @@ __global__ void nw_round_kernel(
   for (int i = 1; i <= T; ++i) {
     const int* dprev = dbuf + ((i - 1) & 1) * W;
     int* dcur = dbuf + (i & 1) * W;
-    if constexpr (kPacked) {
+    if constexpr (kMode == kPacked) {
       c_run += code2(row, T + RL + i - 1);
       if (p == 0) cen[i] = c_run;  // read back by this thread's traceback
+    } else if constexpr (kMode == kResident) {
+      c_run += clampi(prop(i) - prop(i - 1), 0, 2);
+      if (p == 0) cen[i] = c_run;
     } else {
       c_run = cen[i];
     }
@@ -232,11 +270,11 @@ extern "C" int dentist_nw_round(
     void* covered, int N, int T, int RL, int W, int S, int NWIN,
     int lead_free, int trace, void* stream) {
   const size_t smem = (2 * W + W / 32 + 2) * sizeof(int);
-  nw_round_kernel<false><<<N, W, smem, (cudaStream_t)stream>>>(
+  nw_round_kernel<kStore><<<N, W, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)tpl, (const int*)t_lens, (const uint8_t*)reads,
       (const int*)read_lens, (int*)centers, (uint8_t*)moves,
       (int8_t*)sym, (int8_t*)ins, (int*)jpath, (int*)spans, (int*)diffs,
-      (int*)win, (bool*)covered, N, T, RL, W, S, NWIN, lead_free, trace);
+      (int*)win, (bool*)covered, N, T, RL, W, S, NWIN, lead_free, trace, 0);
   return (int)cudaGetLastError();
 }
 
@@ -248,10 +286,26 @@ extern "C" int dentist_nw_round_packed(
     void* covered, int N, int T, int RL, int W, int S, int NWIN,
     int lead_free, int trace, void* stream) {
   const size_t smem = (2 * W + W / 32 + 2) * sizeof(int);
-  nw_round_kernel<true><<<N, W, smem, (cudaStream_t)stream>>>(
+  nw_round_kernel<kPacked><<<N, W, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)chars, (const int*)meta, nullptr, nullptr,
       (int*)centers, (uint8_t*)moves, (int8_t*)sym, (int8_t*)ins,
       (int*)jpath, (int*)spans, (int*)diffs, (int*)win, (bool*)covered, N,
-      T, RL, W, S, NWIN, lead_free, trace);
+      T, RL, W, S, NWIN, lead_free, trace, 0);
+  return (int)cudaGetLastError();
+}
+
+// K2r: store (store_len,) uint8, meta (5, N) with rows t_lens, seg_lens,
+// loc0, tpl_start, seg_start; centers (N, T+1) int32 scratch, kept for K4w
+extern "C" int dentist_nw_round_resident(
+    const void* store, const void* meta, void* centers, void* moves,
+    void* sym, void* ins, void* jpath, void* spans, void* diffs, void* win,
+    void* covered, int store_len, int N, int T, int RL, int W, int S,
+    int NWIN, int lead_free, int trace, void* stream) {
+  const size_t smem = (2 * W + W / 32 + 2) * sizeof(int);
+  nw_round_kernel<kResident><<<N, W, smem, (cudaStream_t)stream>>>(
+      (const uint8_t*)store, (const int*)meta, nullptr, nullptr,
+      (int*)centers, (uint8_t*)moves, (int8_t*)sym, (int8_t*)ins,
+      (int*)jpath, (int*)spans, (int*)diffs, (int*)win, (bool*)covered, N,
+      T, RL, W, S, NWIN, lead_free, trace, store_len);
   return (int)cudaGetLastError();
 }

@@ -30,7 +30,8 @@ import time
 
 import numpy as np
 
-__all__ = ["run_ranks", "free_port", "launch_counts", "dryrun_multigpu", "dryrun"]
+__all__ = ["run_ranks", "free_port", "launch_counts", "reset_launch_counts",
+           "dryrun_multigpu", "dryrun"]
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -46,13 +47,36 @@ def free_port() -> int:
 
 
 def launch_counts() -> dict:
-    """Launches of each kernel mode in this process (K1, K1p, K2, K2p,
-    K3, K3p)."""
-    from .ops import banded, nw_dist, nw_round
+    """Launches of each kernel mode in this process: K1, K1p, K2, K2p,
+    K2r, K3, K3p, K4 (sparse) and K4dense, K4w (sparse) and K4wdense,
+    K5."""
+    from .ops import banded, nw_dist, nw_round, round_pack
 
     return {"K1": banded.launches, "K1p": banded.packed_launches,
             "K2": nw_round.launches, "K2p": nw_round.packed_launches,
-            "K3": nw_dist.launches, "K3p": nw_dist.packed_launches}
+            "K2r": nw_round.resident_launches,
+            "K3": nw_dist.launches, "K3p": nw_dist.packed_launches,
+            "K4": round_pack.sparse_launches,
+            "K4dense": round_pack.dense_launches,
+            "K4w": round_pack.window_sparse_launches,
+            "K4wdense": round_pack.window_dense_launches,
+            "K5": banded.store_write_launches}
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel mode's launch count to 0."""
+    from .ops import banded, nw_dist, nw_round, round_pack
+
+    for mod, names in ((banded, ("launches", "packed_launches",
+                                 "store_write_launches")),
+                       (nw_round, ("launches", "packed_launches",
+                                   "resident_launches")),
+                       (nw_dist, ("launches", "packed_launches")),
+                       (round_pack, ("sparse_launches", "dense_launches",
+                                     "window_sparse_launches",
+                                     "window_dense_launches"))):
+        for name in names:
+            setattr(mod, name, 0)
 
 
 def run_ranks(fn, args=(), kwargs=None, *, n: int, devices, backend: str,
@@ -159,8 +183,8 @@ def _worker(spec: str, out: str, device: str, backend: str,
 def _e2e_inputs():
     """The 60 kb scenario (``scenarios.e2e_scenario``) as ``close_gaps``
     inputs, and three consensus pile-ups (the JAX dry run's)."""
-    from dentist_tpu.models.sequences import SeqStore, split_scaffolds
-    from dentist_tpu.sim.reads import _mutate
+    from .models.sequences import SeqStore, split_scaffolds
+    from .sim.reads import _mutate
 
     from .scenarios import e2e_scenario
 

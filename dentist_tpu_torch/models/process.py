@@ -35,17 +35,16 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from dentist_tpu.io.fasta import reverse_complement
-from dentist_tpu.models.alignments import TRACE_SPACING, LocalAlignmentSet
-from dentist_tpu.models.insertions import Insertion
-from dentist_tpu.models.pileups import ChainCtx, ReadAlignmentRep, Seed
-from dentist_tpu.models.scaffold import ContigPart, Node
-from dentist_tpu.models.sequences import SeqStore
-from dentist_tpu.utils.log import log_json
-from dentist_tpu.utils.regions import Region
-
 from ..errors import DEVICE_ERRORS
+from ..io.fasta import reverse_complement
 from ..ops.consensus import consensus_batch, rank_reference_reads
+from ..utils.log import log_json
+from ..utils.regions import Region
+from .alignments import TRACE_SPACING, LocalAlignmentSet
+from .insertions import Insertion
+from .pileups import ChainCtx, ReadAlignmentRep, Seed
+from .scaffold import ContigPart, Node
+from .sequences import SeqStore
 
 __all__ = ["ProcessConfig", "process_pile_ups", "process_pile_up"]
 
@@ -476,7 +475,7 @@ def process_pile_ups(
     cfg = cfg or ProcessConfig()
     lo, hi = batch if batch else (0, len(pile_ups))
 
-    from dentist_tpu.utils.prof import prof
+    from ..utils.prof import prof
 
     prepared: list[_Prepared] = []
     for i in range(lo, min(hi, len(pile_ups))):

@@ -40,14 +40,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from dentist_tpu.io.fasta import reverse_complement
-from dentist_tpu.models.alignments import TRACE_SPACING, LocalAlignmentSet
-from dentist_tpu.ops.seeding import (KmerIndex, SeedCandidate, cluster_seeds,
-                                     cluster_seeds_batched)
-from dentist_tpu.utils.log import log_json
-from dentist_tpu.utils.prof import prof, prof_add
-
+from ..io.fasta import reverse_complement
+from ..models.alignments import TRACE_SPACING, LocalAlignmentSet
 from ..parallel.dp import dispatch_workers, pad_lanes
+from ..utils.log import log_json
+from ..utils.prof import prof, prof_add
+from .seeding import (KmerIndex, SeedCandidate, cluster_seeds,
+                      cluster_seeds_batched)
 
 __all__ = ["AlignerConfig", "Aligner", "align_store_pair"]
 

@@ -12,6 +12,10 @@ has two modes, one per dispatch mode of the aligner:
   splits the lanes over the ranks of a data-parallel group and gathers
   their results).
 
+:class:`DeviceStore` uploads its sequences 2-bit packed, one chunk at a
+time through K5 (:func:`store_write`, ``csrc/store_write.cu``), which
+unpacks them into the store on the device.
+
 :func:`extend_reference` is the plain PyTorch version of the DP: a
 Python loop over rows, vectorized over lanes and band cells;
 :func:`extend_packed_reference` unpacks and calls it.  The wrappers
@@ -37,7 +41,8 @@ __all__ = ["extend", "extend_reference", "extend_packed",
            "extend_packed_reference", "extend_batch_packed",
            "unpack_extension", "bw_for", "DeviceStore", "device_store",
            "reset_device_store", "host_window_meta", "DIFF_PENALTY", "INF",
-           "DIAG_UNBOUNDED", "RESIDENT_PAD"]
+           "DIAG_UNBOUNDED", "RESIDENT_PAD", "store_write",
+           "store_write_reference"]
 
 DIFF_PENALTY = 6  # score = advance - 6*diffs → break-even at ~33% error
 INF = 1 << 28
@@ -53,6 +58,8 @@ _CHUNK = 42
 launches = 0
 #: launches of the K1 kernel on 2-bit packed windows (K1p)
 packed_launches = 0
+#: launches of K5, the 2-bit store upload
+store_write_launches = 0
 
 
 def bw_for(R: int, W: int) -> int:
@@ -72,7 +79,8 @@ RESIDENT_PAD = 46464
 #: upload length buckets (chars), as the TPU arena allocates them
 _RESIDENT_LADDER = [-(-int(65536 * 1.5 ** k) // 4096) * 4096
                     for k in range(40)]
-#: the TPU arena's upload granule: the capacity check counts whole chunks
+#: chars per upload chunk (K5 launch); the capacity check counts whole
+#: chunks
 _ARENA_CHUNK = 1 << 22
 
 
@@ -93,8 +101,11 @@ class DeviceStore:
     Replaces the TPU arena (``dentist_tpu.ops.banded._Arena``): same
     margins, length buckets, ``epoch`` reset when full and
     ``MemoryError`` for a store that cannot fit, so offsets and
-    fallbacks follow the JAX run.  Codes are uploaded as bytes; the
-    TPU's 2-bit upload transport is not ported.
+    fallbacks follow the JAX run.  Codes upload as the arena's do: 2-bit
+    packed on the host (each code masked to its two bits), in whole
+    chunks of ``_ARENA_CHUNK`` characters, each unpacked into the store
+    by K5 (the tail of the last chunk writes zeros into space not yet
+    allocated).
     """
 
     def __init__(self, device: torch.device, capacity: int | None = None):
@@ -157,11 +168,55 @@ class DeviceStore:
             off = self.pos
             host = np.zeros(L4, dtype=np.uint8)
             host[:L] = np.asarray(codes, dtype=np.uint8) & 3
-            self.array[off : off + L4].copy_(torch.from_numpy(host))
+            packed = np.zeros(Lw // 4, dtype=np.uint8)
+            packed[: L4 // 4] = pack2bit(host.reshape(1, -1))[0]
+            packed = torch.from_numpy(packed).to(self.device)
+            for c0 in range(0, Lw, _ARENA_CHUNK):
+                store_write(packed[c0 // 4 : (c0 + _ARENA_CHUNK) // 4],
+                            self.array, off + c0)
             self.pos += Lb
             if cache:
                 self.keys[key] = (off, codes)
             return off
+
+
+def store_write(packed: torch.Tensor, store: torch.Tensor, off: int) -> None:
+    """K5: unpack the 2-bit packed chunk ``packed`` (n/4,) uint8 into
+    ``store[off : off + n]`` in place, ``store[off + i] = (packed[i >> 2]
+    >> (6 − 2·(i & 3))) & 3``."""
+    global store_write_launches
+    if packed.dtype != torch.uint8 or packed.dim() != 1:
+        raise KernelError("packed must be a 1-D uint8 tensor")
+    if store.dtype != torch.uint8 or store.dim() != 1:
+        raise KernelError("store must be a 1-D uint8 tensor")
+    if packed.device != store.device:
+        raise KernelError("packed and store must share a device")
+    n = 4 * packed.numel()
+    if off < 0 or off + n > store.numel() or store.numel() >= 1 << 31:
+        raise KernelError(f"chunk [{off}, {off + n}) outside the store")
+    if store.device.type == "cpu":
+        store_write_reference(packed, store, off)
+        return
+    if store.device.type != "cuda":
+        raise KernelError(f"store_write: no kernel for device {store.device}")
+    if not (packed.is_contiguous() and store.is_contiguous()):
+        raise KernelError("store_write takes contiguous tensors")
+    if n == 0:
+        return
+    fn = _build.kernel_fn("dentist_store_write", 2, 2)
+    with torch.cuda.device(store.device):
+        stream = torch.cuda.current_stream(store.device).cuda_stream
+        status = fn(packed.data_ptr(), store.data_ptr(), off, n, stream)
+    _build.check("dentist_store_write", status)
+    with _build.launch_lock:
+        store_write_launches += 1
+
+
+def store_write_reference(packed: torch.Tensor, store: torch.Tensor,
+                          off: int) -> None:
+    """Plain PyTorch version of :func:`store_write`."""
+    vals = unpack2bit(packed[None, :])[0]
+    store[off : off + vals.numel()] = vals
 
 
 _STORE: DeviceStore | None = None

@@ -3,24 +3,33 @@
 Port of ``dentist_tpu/ops/consensus.py``: the host code — bucketing,
 retries, windowed realignment, voting, template rebuild and the polish
 hill climb — is the JAX package's, unchanged, so the same lanes share a
-dispatch and the same lanes are retried.  The device work is two
+dispatch and the same lanes are retried.  The device work is five
 hand-written CUDA kernels:
 
-- K2p (:func:`dentist_tpu_torch.ops.nw_round.nw_round_packed`) runs the
-  full template rounds and the fixed-shape windowed rounds (192 template
-  rows, 384 read chars); the windows' interior columns are cut out on
-  the device with ``gather``.
-- K3p (:func:`dentist_tpu_torch.ops.nw_dist.nw_dist_pairs_packed`)
-  scores the polish candidates.
+- K2p (:func:`.nw_round.nw_round_packed`) runs the full template rounds
+  and the fixed-shape windowed rounds (192 template rows, 384 read
+  chars) on 2-bit packed lanes the host built;
+- K2r (:func:`.nw_round.nw_round_resident`) runs windowed rounds whose
+  template and read windows lie in the device store, from five
+  coordinates per lane;
+- K4 (:func:`.round_pack.round_pack`) packs a full round's fields into
+  the JAX package's sparse or dense result block, K4w
+  (:func:`.round_pack.window_pack`) a windowed lane's interior row;
+- K3p (:func:`.nw_dist.nw_dist_pairs_packed`) scores the polish
+  candidates.
 
-Inputs are built on the host and shipped 2-bit packed, as the JAX
-package's non-resident paths ship them; results come back as K2's dense
-fields, the JAX package's ``DENTIST_TPU_DENSE_CONS=1`` path (its sparse
-result blocks and arena-resident windowed inputs carry the same decoded
-values and are not ported).  Under a data-parallel ``group`` every
-dispatch's lanes split over the ranks and the results are gathered
-(port of ``_sharded_nw_round``, ``_sharded_nw_window_round`` and
-``_sharded_nw_dist``), so every rank computes the same consensi.
+Two configurations, as in the JAX package.  The default: the cropped
+reads of a ``consensus_batch`` call upload once into the device store
+(K5, 2-bit packed) and each windowed round uploads its templates, so its
+lanes ship coordinates only (K2r); full and windowed rounds return sparse
+blocks, and lanes whose events overflow the blocks' caps are fetched
+again through the dense blocks.  With ``DENTIST_TPU_DENSE_CONS=1`` every
+round ships host-built packed windows (K2p) and returns dense blocks.
+Under a data-parallel ``group`` every dispatch's lanes split over the
+ranks and the blocks are gathered (port of ``_sharded_nw_round``,
+``_sharded_nw_window_round`` and ``_sharded_nw_dist``), so every rank
+computes the same consensi; the store-resident windows stay single-rank,
+as in the JAX package.
 
 The daccord replacement (SURVEY §2.3): reads of one pile-up share one
 genomic interval and orientation, so each is aligned to the template by
@@ -31,6 +40,7 @@ per-read per-window diff counts are the intrinsic-QV signal.
 
 from __future__ import annotations
 
+import os
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
@@ -38,14 +48,17 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from dentist_tpu.models.alignments import TRACE_SPACING
-from dentist_tpu.utils.prof import prof, prof_add
-
 from ..device import get_device
+from ..models.alignments import TRACE_SPACING
 from ..parallel.dp import dispatch_workers, gather_lanes, local_lanes, pad_lanes
+from ..utils.prof import prof, prof_add
+from .banded import _ARENA_CHUNK, _RESIDENT_LADDER, RESIDENT_PAD, device_store
 from .nw_dist import nw_dist_pairs_packed
-from .nw_round import nw_round_packed
+from .nw_round import nw_round_packed, nw_round_resident
 from .pack2 import pack2bit
+from .round_pack import (TB_nwin, _collect_chunk, _collect_chunk_sparse,
+                         _unpack_window_rows, _unpack_window_rows_sparse,
+                         round_pack, window_pack)
 
 __all__ = ["ConsensusResult", "consensus", "consensus_batch",
            "rank_reference_reads"]
@@ -136,6 +149,10 @@ class _ConsJob:
     prev: _RoundOut | None = None
     dirty: np.ndarray | None = None
     reads_arr: np.ndarray | None = None  # (n, RL) uint8 cache
+    #: device-resident flat cropped-read store + this job's per-read
+    #: offsets into it (enables coordinate-only windowed dispatches)
+    seg_res: object = None
+    read_offs: np.ndarray | None = None
 
     def reads_u8(self) -> np.ndarray:
         if self.reads_arr is None:
@@ -145,6 +162,23 @@ class _ConsJob:
                 arr[ni, : len(r)] = r
             self.reads_arr = arr
         return self.reads_arr
+
+
+class _ArenaRef:
+    """A store uploaded to the device store, re-uploaded transparently
+    if the store was reset (epoch change) since."""
+
+    def __init__(self, codes: np.ndarray):
+        self.store = device_store()
+        self.codes = codes
+        self.base = self.store.offset_of(codes, cache=False)
+        self.epoch = self.store.epoch
+
+    def offset(self) -> int:
+        if self.store.epoch != self.epoch:
+            self.base = self.store.offset_of(self.codes, cache=False)
+            self.epoch = self.store.epoch
+        return self.base
 
 
 def _as_jobs(jobs) -> "list[_ConsJob]":
@@ -296,21 +330,49 @@ def _run_round_full(jobs, W: int, group=None) -> list[_RoundOut]:
             chunk = lidx[c0 : c0 + max_n]
             plan.append((chunk, TB))
 
+    use_sparse = not os.environ.get("DENTIST_TPU_DENSE_CONS")
+
+    def collect(chunk, TB, arr, cen, only_if_better=False,
+                centers_fn=None):
+        """Sparse decode with dense refetch of cap-overflow lanes (the
+        dense block is exact for any event density; ``centers_fn`` must
+        be the SAME band-center source the decoded dispatch used)."""
+        if not use_sparse:
+            _collect_chunk(lanes, chunk, TB, outs,
+                           only_if_better=only_if_better, fetched=arr,
+                           centers=cen)
+            return
+        ovf = _collect_chunk_sparse(lanes, chunk, TB, outs,
+                                    only_if_better=only_if_better,
+                                    fetched=arr)
+        if ovf:
+            prof_add("cons.full.ovf_refetch", hits=len(ovf))
+            ovf_lanes = [chunk[k] for k in ovf]
+            h2, cen2 = _dispatch_chunk(lanes, ovf_lanes, TB, W,
+                                       centers_fn or centers_for,
+                                       group, dense=True)
+            _collect_chunk(lanes, ovf_lanes, TB, outs,
+                           only_if_better=only_if_better,
+                           fetched=_fetch(h2), centers=cen2)
+
     with prof("cons.full.dispatch"):
         # launches serialize in a group: gathers run in the same order on
         # every rank
         with ThreadPoolExecutor(max_workers=dispatch_workers(4)) as ex:
             handles = list(ex.map(
                 lambda t: _dispatch_chunk(lanes, t[0], t[1], W, centers_for,
-                                          group),
+                                          group, dense=not use_sparse),
                 plan))
     with prof("cons.full.fetch"):
-        fetched = [_fetch(h) for h in handles]
-    prof_add("cons.full.fetch",
-             nbytes=sum(a.nbytes for f in fetched for a in f), hits=0)
+        fetched = [_fetch(h) for h, _ in handles]
+    prof_add("cons.full.fetch", nbytes=sum(a.nbytes for a in fetched), hits=0)
+    # the overflow refetch launches (and, in a group, gathers): the pool
+    # runs one worker in a group, as the dispatch pool does
     with prof("cons.full.collect"):
-        for (chunk, TB), arrs in zip(plan, fetched):
-            _collect_chunk(lanes, chunk, outs, arrs)
+        with ThreadPoolExecutor(max_workers=dispatch_workers(4)) as ex:
+            list(ex.map(
+                lambda t: collect(t[0][0], t[0][1], t[2], t[1][1]),
+                zip(plan, handles, fetched)))
     retries = []
     for chunk, TB in plan:
         # retry uncovered lanes with proportional centers
@@ -328,10 +390,13 @@ def _run_round_full(jobs, W: int, group=None) -> list[_RoundOut]:
                 ji, ri, _, _ = lanes[li]
                 return centers_prop[ji][:, ri]
 
-            retries.append((retry, _dispatch_chunk(lanes, retry, TB, W,
-                                                   prop_for, group)))
-    for retry, h in retries:
-        _collect_chunk(lanes, retry, outs, _fetch(h), only_if_better=True)
+            retries.append((retry, TB,
+                            _dispatch_chunk(lanes, retry, TB, W, prop_for,
+                                            group, dense=not use_sparse),
+                            prop_for))
+    refetched = [_fetch(t[2][0]) for t in retries]
+    for (retry, TB, (_, cen), pf), arr in zip(retries, refetched):
+        collect(retry, TB, arr, cen, only_if_better=True, centers_fn=pf)
 
     # assemble per-job outputs
     with prof("cons.full.assemble"):
@@ -358,10 +423,6 @@ def _run_round_full(jobs, W: int, group=None) -> list[_RoundOut]:
                 cov[ri] = o[6]
             results.append(_RoundOut(sym, ins, jpath, spans, diffs, win, cov))
     return results
-
-
-def TB_nwin(T: int) -> int:
-    return (T + TRACE_SPACING - 1) // TRACE_SPACING
 
 
 # ======================================================================
@@ -412,9 +473,33 @@ def _run_round_windowed(jobs, W: int, group=None):
     jobs = _as_jobs(jobs)
     lane_tpl, lane_seg = [], []
     lane_tlen, lane_seglen, lane_loc0 = [], [], []
+    lane_tstart, lane_sstart = [], []
     per_job = []  # (rr, kk, i0, kend, b0, b1, jlo_s, lane_offset)
     failures: list[tuple[int, int]] = []
     total = 0
+    # resident mode: the cropped reads live on the device (batch upload)
+    # and the templates upload once per call — lanes then ship coordinates
+    res_mode = (bool(jobs) and group is None
+                and all(j.seg_res is not None and j.read_offs is not None
+                        for j in jobs))
+    tpl_bases = None
+    if res_mode:
+        # preflight: the read store and the per-round templates must be
+        # able to coexist in the device store, or the upload-retry loop in
+        # the dispatcher could thrash (each template upload resetting the
+        # store and evicting the read store)
+        def _bucket(n):
+            b = next(x for x in _RESIDENT_LADDER if max(n, 4) <= x)
+            return max(b, -(-n // _ARENA_CHUNK) * _ARENA_CHUNK)
+
+        seg_len = len(jobs[0].seg_res.codes)
+        tpl_len = sum(len(j.template) for j in jobs)
+        if (_bucket(seg_len) + _bucket(tpl_len) + 3 * RESIDENT_PAD
+                > jobs[0].seg_res.store.capacity):
+            res_mode = False
+    if res_mode:
+        tpl_bases = np.concatenate(
+            [[0], np.cumsum([len(j.template) for j in jobs])])[:-1]
     _t_build = time.perf_counter()
     for wi, job in enumerate(jobs):
         template, reads, jp = job.template, job.reads, job.jpath
@@ -457,12 +542,16 @@ def _run_round_windowed(jobs, W: int, group=None):
         tmask = tidx < b1[kk][:, None]
         lane_tpl.append(np.where(
             tmask, template[np.minimum(tidx, max(T - 1, 0))], 0).astype(np.uint8))
-        reads_arr = job.reads_u8()
-        RL = reads_arr.shape[1]
-        sidx = jl[:, None] + np.arange(_SEG)[None, :]
-        smask = np.arange(_SEG)[None, :] < seg_len[:, None]
-        lane_seg.append(np.where(
-            smask, reads_arr[rr[:, None], np.minimum(sidx, RL - 1)], 0))
+        if res_mode:
+            lane_tstart.append(tpl_bases[wi] + b0[kk])
+            lane_sstart.append(job.read_offs[rr] + jl)
+        else:
+            reads_arr = job.reads_u8()
+            RL = reads_arr.shape[1]
+            sidx = jl[:, None] + np.arange(_SEG)[None, :]
+            smask = np.arange(_SEG)[None, :] < seg_len[:, None]
+            lane_seg.append(np.where(
+                smask, reads_arr[rr[:, None], np.minimum(sidx, RL - 1)], 0))
         lane_tlen.append(t_len)
         lane_seglen.append(seg_len)
         lane_loc0.append((i0 - b0)[kk])
@@ -471,10 +560,16 @@ def _run_round_windowed(jobs, W: int, group=None):
 
     prof_add("cons.win.build", time.perf_counter() - _t_build,
              hits=len(jobs))
+    resident = None
+    if res_mode:
+        resident = (jobs[0].seg_res,
+                    np.concatenate([j.template for j in jobs])
+                    if jobs else np.zeros(0, np.uint8),
+                    lane_tstart, lane_sstart)
     with prof("cons.win.dispatch+fetch"):  # bytes: see cons.win.fetch
         fetched = _dispatch_windowed_lanes(
             lane_tpl, lane_tlen, lane_seg, lane_seglen, lane_loc0, total, W,
-            group)
+            group, resident=resident)
     prof_add("cons.win.lanes", hits=total)
 
     _t_stitch = time.perf_counter()
@@ -572,16 +667,22 @@ _WCHUNK = 2048
 
 
 def _dispatch_windowed_lanes(lane_tpl, lane_tlen, lane_seg, lane_seglen,
-                             lane_loc0, total: int, W: int, group=None):
-    """Run all window lanes through K2p in fixed-shape chunks; returns
-    stacked interior-only (sym (total, 126) int8, ins (total, 127, 4)
-    int8, jpath (total, 127) int64 relative to each segment's start).
+                             lane_loc0, total: int, W: int, group=None,
+                             resident=None):
+    """Run all window lanes in fixed-shape chunks; returns stacked
+    interior-only (sym (total, 126) int8, ins (total, 127, 4) int8, jpath
+    (total, 127) int64 relative to each segment's start).
 
-    Band centers are the proportional schedule ``c(r) = min(r, tlen) ·
-    slen // tlen`` with steps clipped to 0..2 (an over-slope lane fails
-    coverage and is retried by the full round); they travel as 2-bit
-    steps.  Only the ``_ADV`` interior columns from ``loc0`` on leave the
-    device (and, under a group, cross between ranks).
+    Host-window lanes ship 2-bit packed rows to K2p, with band centers
+    ``c(r) = min(r, tlen) · slen // tlen`` as 2-bit steps clipped to 0..2
+    (an over-slope lane fails coverage and is retried by the full round).
+    ``resident`` = (read store ``_ArenaRef``, flat templates, per-job
+    template starts, per-job read-segment starts) ships five coordinates
+    per lane to K2r instead, which reads both windows from the device
+    store and builds the same centers.  K4w packs each lane's interior
+    row (sparse by default, dense with ``DENTIST_TPU_DENSE_CONS=1``, and
+    dense for the lanes that overflow the sparse caps); only those rows
+    leave the device (and, under a group, cross between ranks).
     """
     sym_all = np.full((total, _ADV), 5, np.int8)
     ins_all = np.zeros((total, _ADV + 1, 4), np.int8)
@@ -589,19 +690,55 @@ def _dispatch_windowed_lanes(lane_tpl, lane_tlen, lane_seg, lane_seglen,
     if total == 0:
         return sym_all, ins_all, jp_all
     tpl = np.concatenate(lane_tpl)
-    seg = np.concatenate(lane_seg)
     tlen = np.concatenate(lane_tlen).astype(np.int32)
     slen = np.concatenate(lane_seglen).astype(np.int32)
     loc0 = np.concatenate(lane_loc0).astype(np.int32)
     rows = np.arange(_WS + 1, dtype=np.int32)
+    use_sparse = not os.environ.get("DENTIST_TPU_DENSE_CONS")
     dev = get_device()
-    intr = torch.arange(_ADV, device=dev)
-    bnd = torch.arange(_ADV + 1, device=dev)
+    seg = store = tstart = sstart = None
+    if resident is not None:
+        seg_ref, tpl_flat, lane_tstart, lane_sstart = resident
+        st = seg_ref.store
+        with st.lock:  # both offsets + array from one store state
+            for _attempt in range(4):
+                seg_base = seg_ref.offset()
+                tpl_base = st.offset_of(tpl_flat, cache=False)
+                # the template upload may have reset a full store, wiping
+                # the read store — redo both until stable (the caller's
+                # preflight guarantees they coexist, so this settles in
+                # <= 2 iterations)
+                if st.epoch == seg_ref.epoch:
+                    break
+            else:
+                raise MemoryError(
+                    "consensus stores do not fit the device store")
+            store = st.array
+        tstart = np.concatenate(lane_tstart).astype(np.int32) + tpl_base
+        sstart = np.concatenate(lane_sstart).astype(np.int32) + seg_base
+    else:
+        seg = np.concatenate(lane_seg)
+    kw = dict(T=_WS, RL=_SEG, W=W, S=_WS + _SEG, NWIN=max(TB_nwin(_WS), 1),
+              lead_free=2 * _LEAD_SLACK)
 
-    def dispatch(sel):
+    def dispatch(sel, dense=False):
         m = len(sel)
         Nc = pad_lanes(next((b for b in _N_LADDER if m <= b <= _WCHUNK),
                             _WCHUNK), group)
+        sparse = use_sparse and not dense
+        if resident is not None:
+            meta = np.zeros((5, Nc), np.int32)
+            meta[0] = 1
+            meta[0, :m] = tlen[sel]
+            meta[1, :m] = slen[sel]
+            meta[2, :m] = loc0[sel]
+            meta[3, :m] = tstart[sel]
+            meta[4, :m] = sstart[sel]
+            meta = torch.from_numpy(meta).to(dev)
+            cen = torch.empty((Nc, _WS + 1), dtype=torch.int32, device=dev)
+            fields = nw_round_resident(store, meta, centers_out=cen, **kw)
+            return window_pack(store, meta, fields[:3], cen, sparse,
+                               resident=True)
         tpl_c = np.zeros((Nc, _WS), np.uint8)
         seg_c = np.zeros((Nc, _SEG), np.uint8)
         meta = np.zeros((4, Nc), np.int32)  # t_lens, seg_lens, c0, loc0
@@ -615,20 +752,16 @@ def _dispatch_windowed_lanes(lane_tpl, lane_tlen, lane_seg, lane_seglen,
         cen = (np.minimum(rows[None, :], tl) * slen[sel, None]) // tl
         steps = np.zeros((Nc, _WS), np.uint8)
         steps[:m] = np.diff(cen, axis=1).clip(0, 2)
-        chars = np.concatenate([pack2bit(local_lanes(x, group, 0))
-                                for x in (tpl_c, seg_c, steps)], axis=1)
+        chars = torch.from_numpy(np.concatenate(
+            [pack2bit(local_lanes(x, group, 0)) for x in (tpl_c, seg_c, steps)],
+            axis=1)).to(dev)
         meta = torch.from_numpy(np.ascontiguousarray(
             local_lanes(meta, group, 1))).to(dev)
-        sym, ins, jpath, *_ = nw_round_packed(
-            torch.from_numpy(chars).to(dev), meta, T=_WS, RL=_SEG, W=W,
-            S=_WS + _SEG, NWIN=max(TB_nwin(_WS), 1),
-            lead_free=2 * _LEAD_SLACK)
-        lo = meta[3].to(torch.int64)[:, None]
-        idx_b = lo + bnd[None, :]
-        return tuple(gather_lanes(x, group, 0) for x in (
-            sym.gather(1, lo + intr[None, :]),
-            ins.gather(1, idx_b[:, :, None].expand(-1, -1, 4)),
-            jpath.gather(1, idx_b)))
+        cen = torch.empty((meta.shape[1], _WS + 1), dtype=torch.int32,
+                          device=dev)
+        fields = nw_round_packed(chars, meta, centers_out=cen, **kw)
+        return gather_lanes(window_pack(chars, meta, fields[:3], cen, sparse,
+                                        resident=False), group, 0)
 
     plan = [np.arange(c0, min(c0 + _WCHUNK, total))
             for c0 in range(0, total, _WCHUNK)]
@@ -637,30 +770,74 @@ def _dispatch_windowed_lanes(lane_tpl, lane_tlen, lane_seg, lane_seglen,
             handles = list(ex.map(dispatch, plan))
     with prof("cons.win.fetch"):
         arrs = [_fetch(h) for h in handles]
-    prof_add("cons.win.fetch", nbytes=sum(a.nbytes for f in arrs for a in f),
-             hits=0)
-    for sel, (sym, ins, jp) in zip(plan, arrs):
+    prof_add("cons.win.fetch", nbytes=sum(a.nbytes for a in arrs), hits=0)
+    bnd = np.arange(_ADV + 1, dtype=np.int64)[None, :]
+    intr = np.arange(_ADV, dtype=np.int64)[None, :]
+
+    def decode_dense(sel, packed):
+        # band centers at the interior boundaries (rows loc0..loc0+126)
+        r = loc0[sel, None] + bnd
+        tl = np.maximum(tlen[sel, None].astype(np.int64), 1)
+        cen_b = np.minimum(r, tl) * slen[sel, None] // tl
+        return _unpack_window_rows(packed[: len(sel)], cen_b)
+
+    ovf_idx: list[int] = []
+
+    def decode_one(args):
+        sel, packed = args
         m = len(sel)
-        sym_all[sel] = sym[:m]
-        ins_all[sel] = ins[:m]
-        jp_all[sel] = jp[:m]
+        if use_sparse:
+            tpl_i = tpl[sel[:, None], loc0[sel, None] + intr].astype(np.int8)
+            sym, ins, jp, ovf = _unpack_window_rows_sparse(packed[:m], tpl_i)
+            if ovf.any():
+                ovf_idx.extend(sel[np.flatnonzero(ovf)].tolist())
+        else:
+            sym, ins, jp = decode_dense(sel, packed)
+        sym_all[sel] = sym
+        ins_all[sel] = ins
+        jp_all[sel] = jp
+
+    # decode on a pool: numpy's unpack/cumsum passes release the GIL
+    with prof("cons.win.decode"):
+        with ThreadPoolExecutor(max_workers=4) as ex:
+            list(ex.map(decode_one, zip(plan, arrs)))
+    if ovf_idx:
+        # cap-overflow lanes (error-dense windows): exact dense refetch
+        # of just those lanes
+        prof_add("cons.win.ovf_refetch", hits=len(ovf_idx))
+        # sorted: the decode pool accumulates in completion order, but
+        # refetch chunk composition must be deterministic (in a group
+        # every rank gathers these chunks)
+        allsel = np.asarray(sorted(ovf_idx), dtype=np.int64)
+        for c0 in range(0, len(allsel), _WCHUNK):
+            sub = allsel[c0 : c0 + _WCHUNK]
+            sym, ins, jp = decode_dense(sub, _fetch(dispatch(sub, dense=True)))
+            sym_all[sub] = sym
+            ins_all[sub] = ins
+            jp_all[sub] = jp
     return sym_all, ins_all, jp_all
 
 
-def _fetch(handle) -> tuple:
-    """Device result tensors → numpy (the synchronization point)."""
-    return tuple(t.cpu().numpy() for t in handle)
+def _fetch(handle: torch.Tensor) -> np.ndarray:
+    """A device result block → numpy (the synchronization point)."""
+    return handle.cpu().numpy()
 
 
-def _dispatch_chunk(lanes, chunk, TB, W, centers_for, group=None):
-    """Assemble + launch one chunk of a full round; returns K2's seven
-    output tensors (padded to the chunk's lane bucket).
+def _dispatch_chunk(lanes, chunk, TB, W, centers_for, group=None,
+                    dense=False):
+    """Assemble + launch one chunk of a full round; returns ``(block,
+    centers)``: the result block on the device (padded to the chunk's
+    lane bucket) and the chunk's band centers, which the host needs to
+    restore absolute jpath from a dense block.  ``dense`` selects the
+    dense block (``DENTIST_TPU_DENSE_CONS=1``, and sparse-cap overflow
+    refetches).
 
     ``centers_for(lane_idx)`` supplies each lane's step-clamped band
     center column; reads longer than the 2·T read bucket run on their
     prefix (see :func:`_rl_bucket`).  Templates, reads and the centers'
-    0..2 steps travel 2-bit packed; under a group each rank packs and
-    runs its block of lanes and the seven outputs are gathered.
+    0..2 steps travel 2-bit packed to K2p, and K4 packs its fields into
+    the block; under a group each rank packs and runs its block of lanes
+    and the result blocks are gathered.
     """
     RLB = _rl_bucket(0, TB)
     # non-power-of-2 groups: pad to a lane multiple
@@ -681,29 +858,21 @@ def _dispatch_chunk(lanes, chunk, TB, W, centers_for, group=None):
         c = centers_for(li)
         centers[: T + 1, k] = c
         centers[T + 1 :, k] = c[T]
+    NWIN = max(TB_nwin(TB), 1)
     # the kernel's band moves 0..2 columns per row: centers travel as
     # their first row plus clipped steps (a no-op for the clamped schedules)
     steps = np.clip(np.diff(centers, axis=0), 0, 2).astype(np.uint8).T  # (N, TB)
     meta = np.stack([t_lens, read_lens, centers[0]])
-    chars = np.concatenate([pack2bit(local_lanes(x, group, 0))
-                            for x in (tpl, reads_arr, steps)], axis=1)
     dev = get_device()
-    out = nw_round_packed(
-        torch.from_numpy(chars).to(dev),
-        torch.from_numpy(np.ascontiguousarray(local_lanes(meta, group, 1))).to(dev),
-        T=TB, RL=RLB, W=W, S=TB + RLB, NWIN=max(TB_nwin(TB), 1))
-    return tuple(gather_lanes(x, group, 0) for x in out)
-
-
-def _collect_chunk(lanes, chunk, outs, fetched, only_if_better=False):
-    """Store a fetched chunk's per-lane results into ``outs``."""
-    sym, ins, jpath, spans, diffs, win, covered = fetched
-    for k, li in enumerate(chunk):
-        ji, ri = lanes[li][0], lanes[li][1]
-        if only_if_better and not covered[k]:
-            continue
-        outs[(ji, ri)] = (sym[k], ins[k], jpath[k].astype(np.int64), spans[k],
-                          diffs[k], win[k], bool(covered[k]))
+    chars = torch.from_numpy(np.concatenate(
+        [pack2bit(local_lanes(x, group, 0)) for x in (tpl, reads_arr, steps)],
+        axis=1)).to(dev)
+    meta = torch.from_numpy(np.ascontiguousarray(local_lanes(meta, group, 1))).to(dev)
+    cen = torch.empty((meta.shape[1], TB + 1), dtype=torch.int32, device=dev)
+    fields = nw_round_packed(chars, meta, T=TB, RL=RLB, W=W, S=TB + RLB,
+                             NWIN=NWIN, centers_out=cen)
+    block = round_pack(chars, fields, cen, TB, RLB, NWIN, sparse=not dense)
+    return gather_lanes(block, group, 0), centers
 
 
 # ======================================================================
@@ -1112,7 +1281,9 @@ def _polish_batch(states, read_sets, W: int, max_rounds: int = 8,
                          prev=(states[p]["last_out"]
                                if states[p].get("dirty") is not None else None),
                          dirty=states[p].get("dirty"),
-                         reads_arr=states[p].get("reads_arr"))
+                         reads_arr=states[p].get("reads_arr"),
+                         seg_res=states[p].get("seg_res"),
+                         read_offs=states[p].get("read_offs"))
                 for p in stale]
         for ai, out in enumerate(_run_round(jobs, W, group)):
             p = stale[ai]
@@ -1232,7 +1403,9 @@ def _polish_batch(states, read_sets, W: int, max_rounds: int = 8,
             jobs = [_ConsJob(states[p]["template"], read_sets[p],
                              states[p]["jpath"], prev=states[p]["last_out"],
                              dirty=dirty_now[p],
-                             reads_arr=states[p]["reads_arr"])
+                             reads_arr=states[p]["reads_arr"],
+                             seg_res=states[p].get("seg_res"),
+                             read_offs=states[p].get("read_offs"))
                     for p in edited]
             for ai, out in enumerate(_run_round(jobs, W, group)):
                 p = edited[ai]
@@ -1304,6 +1477,26 @@ def consensus_batch(read_sets: list[list[np.ndarray]], rounds: int = 3,
     read_sets = [[np.asarray(r, dtype=np.uint8) for r in rs if len(r) > 0]
                  for rs in read_sets]
     results: list[ConsensusResult | None] = [None] * len(read_sets)
+    # device-resident cropped-read store: ONE packed upload serves every
+    # windowed realign round of the whole batch (the per-lane read
+    # segments were the rounds' largest input stream)
+    seg_res = None
+    read_offs: list[np.ndarray | None] = [None] * len(read_sets)
+    if group is None and not os.environ.get("DENTIST_TPU_DENSE_CONS"):
+        offs_all, pos = [], 0
+        for rs in read_sets:
+            job_offs = np.empty(len(rs), np.int64)
+            for i, r in enumerate(rs):
+                job_offs[i] = pos
+                pos += len(r)
+            offs_all.append(job_offs)
+        if pos:
+            try:
+                seg_res = _ArenaRef(
+                    np.concatenate([r for rs in read_sets for r in rs]))
+                read_offs = offs_all
+            except MemoryError:
+                seg_res = None  # host-window dispatch (identical results)
     states: list[dict] = []
     for p, reads in enumerate(read_sets):
         triv = _trivial_result(reads)
@@ -1322,7 +1515,8 @@ def consensus_batch(read_sets: list[list[np.ndarray]], rounds: int = 3,
             reads_arr[n, : len(r)] = r
         states.append({"template": template, "jpath": None, "done": False,
                        "last_out": None, "stats_stale": False,
-                       "reads_arr": reads_arr, "dirty": None})
+                       "reads_arr": reads_arr, "dirty": None,
+                       "seg_res": seg_res, "read_offs": read_offs[p]})
 
     live = [p for p in range(len(read_sets)) if results[p] is None]
     for rnd in range(rounds):
@@ -1338,7 +1532,9 @@ def consensus_batch(read_sets: list[list[np.ndarray]], rounds: int = 3,
                          prev=(states[p]["last_out"]
                                if states[p]["dirty"] is not None else None),
                          dirty=states[p]["dirty"],
-                         reads_arr=states[p]["reads_arr"])
+                         reads_arr=states[p]["reads_arr"],
+                         seg_res=states[p].get("seg_res"),
+                         read_offs=states[p].get("read_offs"))
                 for p in active]
         outs = _run_round(jobs, W, group)
         for ai, p in enumerate(active):
@@ -1379,7 +1575,9 @@ def consensus_batch(read_sets: list[list[np.ndarray]], rounds: int = 3,
                          prev=(states[p]["last_out"]
                                if states[p]["dirty"] is not None else None),
                          dirty=states[p]["dirty"],
-                         reads_arr=states[p]["reads_arr"])
+                         reads_arr=states[p]["reads_arr"],
+                         seg_res=states[p].get("seg_res"),
+                         read_offs=states[p].get("read_offs"))
                 for p in stale]
         outs = _run_round(jobs, W, group)
         for ai, p in enumerate(stale):

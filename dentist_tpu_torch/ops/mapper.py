@@ -26,11 +26,10 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from dentist_tpu.models.alignments import LocalAlignmentSet
-from dentist_tpu.ops.chain import Chain, ChainingOptions, chain_local_alignments
-from dentist_tpu.utils.log import log_json
-
+from ..models.alignments import LocalAlignmentSet
+from ..utils.log import log_json
 from .aligner import AlignerConfig, align_store_pair
+from .chain import Chain, ChainingOptions, chain_local_alignments
 
 __all__ = ["MapperConfig", "map_reads"]
 
@@ -69,7 +68,7 @@ def map_reads(
     ``group`` splits extension dispatches over data-parallel ranks (see
     :func:`~.aligner.align_store_pair`).
     """
-    from dentist_tpu.utils.prof import prof
+    from ..utils.prof import prof
 
     cfg = config or MapperConfig()
     with prof("map.align"):

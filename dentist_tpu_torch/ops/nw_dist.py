@@ -132,7 +132,23 @@ def nw_dist_pairs_reference(buf, meta, TW: int, TWp: int, RW: int, NB: int):
 def nw_dist_full_reference(templates, t_lens, reads, read_lens, T: int):
     """Global edit distance of each (template, read) pair: templates
     (V, T), reads (V, N, RL); returns (V, N) int32.  A Python loop over
-    template rows, vectorized over pairs and read columns."""
+    template rows, vectorized over pairs and read columns.
+
+    A pair whose template is empty ends on no row, so its distance stays
+    INF: the loop runs only over pairs with a template, and only up to
+    their longest one (rows past a template's end cannot reach its end
+    row)."""
+    live = torch.nonzero(t_lens > 0).flatten()
+    out = torch.full(t_lens.shape + reads.shape[1:2], INF, dtype=torch.int32,
+                     device=templates.device)
+    if len(live):
+        T_eff = min(T, int(t_lens[live].max()))
+        out[live] = _nw_dist_rows(templates[live], t_lens[live], reads[live],
+                                  read_lens[live], T_eff)
+    return out
+
+
+def _nw_dist_rows(templates, t_lens, reads, read_lens, T: int):
     dev = templates.device
     i64 = torch.int64
     tpl = templates.to(i64) & 3

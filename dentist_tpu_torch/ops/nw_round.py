@@ -23,6 +23,17 @@ Band centers must step by 0..2 per row, as the host builds them.
 row each — [template | read | band-center steps] — and rebuilds the
 centers on the device as the running sum of the steps; its plain version
 unpacks and calls :func:`nw_round_reference`.
+
+:func:`nw_round_resident` (K2r, port of ``_window_resident_inputs`` with
+the DP of ``_nw_window_round_resident(_dense)``) takes windowed lanes as
+five coordinates each and reads their characters from the device store;
+its plain version, :func:`window_resident_inputs`, gathers the windows
+and the proportional band centers as JAX does and calls
+:func:`nw_round_reference`.
+
+The packed and resident modes can hand their band centers to the result
+packing (``ops/round_pack.py``) through ``centers_out``, an (N, T+1)
+int32 tensor that they fill.
 """
 
 from __future__ import annotations
@@ -34,7 +45,8 @@ from ..errors import KernelError
 from .pack2 import unpack2bit
 
 __all__ = ["nw_round", "nw_round_reference", "nw_round_packed",
-           "nw_round_packed_reference", "INF"]
+           "nw_round_packed_reference", "nw_round_resident",
+           "window_resident_inputs", "INF"]
 
 INF = 1 << 28
 _DIAG, _UP, _LEFT, _NONE = 0, 1, 2, 3
@@ -44,6 +56,8 @@ _TRACE = 126
 launches = 0
 #: launches of the K2 kernel on 2-bit packed inputs (K2p)
 packed_launches = 0
+#: launches of the K2 kernel on windows in the device store (K2r)
+resident_launches = 0
 
 
 def _check_args(tpl, t_lens, reads, read_lens, centers, T, W, S, NWIN):
@@ -127,26 +141,38 @@ def _check_packed(chars_pack, meta, T, RL, W, S, NWIN):
     return N
 
 
+def _check_centers_out(centers_out, N, T, dev):
+    if centers_out is not None and (
+            centers_out.dtype != torch.int32
+            or tuple(centers_out.shape) != (N, T + 1)
+            or centers_out.device != dev or not centers_out.is_contiguous()):
+        raise KernelError("centers_out must be a contiguous (N, T+1) int32 "
+                          "tensor on the inputs' device")
+
+
 def nw_round_packed(chars_pack, meta, T: int, RL: int, W: int, S: int,
-                    NWIN: int, lead_free: int = -1):
+                    NWIN: int, lead_free: int = -1, centers_out=None):
     """K2p: one realign round for N lanes given 2-bit packed.
 
     ``chars_pack`` (N, T/4 + RL/4 + T/4) uint8 = [template | read |
     band-center steps] per lane (:func:`~.pack2.pack2bit`; steps are
     0..2); ``meta`` (3, N) or (4, N) int32 rows t_lens, read_lens, first
     band center (and ``loc0`` for windowed rounds, which the kernel does
-    not read).  Returns the seven outputs of :func:`nw_round`."""
+    not read).  Returns the seven outputs of :func:`nw_round`; fills
+    ``centers_out`` (N, T+1) with the band centers when it is given."""
     global packed_launches
     N = _check_packed(chars_pack, meta, T, RL, W, S, NWIN)
     dev = chars_pack.device
+    _check_centers_out(centers_out, N, T, dev)
     if dev.type == "cpu":
         return nw_round_packed_reference(chars_pack, meta, T, RL, W, S, NWIN,
-                                         lead_free)
+                                         lead_free, centers_out)
     if dev.type != "cuda":
         raise KernelError(f"nw_round_packed: no kernel for device {dev}")
     chars_pack = chars_pack.contiguous()
     meta = meta.contiguous()
-    centers = torch.empty((N, T + 1), dtype=torch.int32, device=dev)
+    centers = (centers_out if centers_out is not None else
+               torch.empty((N, T + 1), dtype=torch.int32, device=dev))
     moves = torch.empty((N, T, W), dtype=torch.uint8, device=dev)
     sym = torch.empty((N, T), dtype=torch.int8, device=dev)
     ins = torch.empty((N, T + 1, 4), dtype=torch.int8, device=dev)
@@ -171,7 +197,8 @@ def nw_round_packed(chars_pack, meta, T: int, RL: int, W: int, S: int,
 
 
 def nw_round_packed_reference(chars_pack, meta, T: int, RL: int, W: int,
-                              S: int, NWIN: int, lead_free: int = -1):
+                              S: int, NWIN: int, lead_free: int = -1,
+                              centers_out=None):
     """Plain PyTorch version of :func:`nw_round_packed`: unpack, rebuild
     the centers with a cumulative sum, run :func:`nw_round_reference`."""
     codes = unpack2bit(chars_pack)
@@ -180,15 +207,135 @@ def nw_round_packed_reference(chars_pack, meta, T: int, RL: int, W: int,
     steps = codes[:, T + RL :].t().to(torch.int32)
     c0 = meta[2][None, :]
     centers = torch.cat([c0, c0 + torch.cumsum(steps, 0, dtype=torch.int32)])
+    if centers_out is not None:
+        centers_out.copy_(centers.t())
     return nw_round_reference(tpl, meta[0].contiguous(), reads,
                               meta[1].contiguous(), centers, T, W, S, NWIN,
                               lead_free)
 
 
+def _check_resident(store, meta, T, RL, W, S, NWIN):
+    if store.dtype != torch.uint8 or store.dim() != 1:
+        raise KernelError("store must be a 1-D uint8 tensor")
+    if meta.dtype != torch.int32 or meta.dim() != 2 or meta.shape[0] != 5:
+        raise KernelError("meta must be a (5, N) int32 tensor")
+    if store.device != meta.device:
+        raise KernelError("store and meta must share a device")
+    if not max(T, RL) <= store.numel() < 1 << 31:
+        raise KernelError("store size out of range")
+    if W % 32 or not 32 <= W <= 1024 or T < 1 or RL < 1 or S < 0 or NWIN < 1:
+        raise KernelError(f"unsupported shape T={T} W={W} RL={RL}")
+    return meta.shape[1]
+
+
+def nw_round_resident(store, meta, T: int, RL: int, W: int, S: int,
+                      NWIN: int, lead_free: int = -1, centers_out=None):
+    """K2r: one windowed realign round for N lanes whose characters lie
+    in the device store.
+
+    ``store`` (L,) uint8 (a :class:`~.banded.DeviceStore`'s array);
+    ``meta`` (5, N) int32 rows t_lens, seg_lens, loc0, tpl_start,
+    seg_start: lane n's template is ``store[tpl_start:][:T]`` cut at
+    t_len and its read segment ``store[seg_start:][:RL]`` cut at seg_len
+    (zeros past them; starts clamped into the store).  The band centers
+    are the proportional schedule of :func:`window_resident_inputs`.
+    Returns the seven outputs of :func:`nw_round`; fills ``centers_out``
+    (N, T+1) when it is given."""
+    global resident_launches
+    N = _check_resident(store, meta, T, RL, W, S, NWIN)
+    dev = store.device
+    _check_centers_out(centers_out, N, T, dev)
+    if dev.type == "cpu":
+        tpl, reads, t_lens, seg_lens, centers, _ = window_resident_inputs(
+            store, meta, T, RL)
+        if centers_out is not None:
+            centers_out.copy_(centers.t())
+        return nw_round_reference(tpl, t_lens, reads, seg_lens, centers, T,
+                                  W, S, NWIN, lead_free)
+    if dev.type != "cuda":
+        raise KernelError(f"nw_round_resident: no kernel for device {dev}")
+    if not (store.is_contiguous() and meta.is_contiguous()):
+        raise KernelError("nw_round_resident takes contiguous tensors")
+    centers = (centers_out if centers_out is not None else
+               torch.empty((N, T + 1), dtype=torch.int32, device=dev))
+    moves = torch.empty((N, T, W), dtype=torch.uint8, device=dev)
+    sym = torch.empty((N, T), dtype=torch.int8, device=dev)
+    ins = torch.empty((N, T + 1, 4), dtype=torch.int8, device=dev)
+    jpath = torch.empty((N, T + 1), dtype=torch.int32, device=dev)
+    spans = torch.empty((N, 2), dtype=torch.int32, device=dev)
+    diffs = torch.empty((N,), dtype=torch.int32, device=dev)
+    win = torch.empty((N, NWIN), dtype=torch.int32, device=dev)
+    covered = torch.empty((N,), dtype=torch.bool, device=dev)
+    if N:
+        fn = _build.kernel_fn("dentist_nw_round_resident", 11, 9)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            status = fn(store.data_ptr(), meta.data_ptr(), centers.data_ptr(),
+                        moves.data_ptr(), sym.data_ptr(), ins.data_ptr(),
+                        jpath.data_ptr(), spans.data_ptr(), diffs.data_ptr(),
+                        win.data_ptr(), covered.data_ptr(), store.numel(), N,
+                        T, RL, W, S, NWIN, lead_free, _TRACE, stream)
+        _build.check("dentist_nw_round_resident", status)
+        with _build.launch_lock:
+            resident_launches += 1
+    return sym, ins, jpath, spans, diffs, win, covered
+
+
+def window_resident_inputs(store, meta, T: int, RL: int):
+    """Plain PyTorch version of K2r's inputs (JAX's
+    ``_window_resident_inputs``): ``(tpl (T, N) uint8, reads (N, RL)
+    uint8, t_lens, seg_lens, centers (T+1, N) int32, loc0)`` from the
+    store and the (5, N) coordinates."""
+    t_lens, seg_lens, loc0 = meta[0], meta[1], meta[2]
+    L = store.numel()
+    dev = store.device
+
+    def rows(start, size, lens):
+        s = start.to(torch.int64).clamp(0, L - size)  # dynamic_slice clamps
+        col = torch.arange(size, device=dev)
+        r = store[s[:, None] + col[None, :]]
+        return torch.where(col[None, :] < lens[:, None], r, 0)
+
+    tpl = rows(meta[3], T, t_lens)
+    reads = rows(meta[4], RL, seg_lens)
+    r = torch.arange(T + 1, dtype=torch.int32, device=dev)[None, :]
+    tl = torch.clamp(t_lens, min=1)[:, None]
+    cen = torch.div(torch.minimum(r, tl) * seg_lens[:, None], tl,
+                    rounding_mode="floor")
+    steps = torch.clamp(cen[:, 1:] - cen[:, :-1], 0, 2)
+    centers = torch.cat([torch.zeros_like(steps[:, :1]),
+                         torch.cumsum(steps, 1, dtype=torch.int32)], 1)
+    return (tpl.t().contiguous(), reads.contiguous(), t_lens.contiguous(),
+            seg_lens.contiguous(), centers.t().contiguous(), loc0)
+
+
 def nw_round_reference(tpl, t_lens, reads, read_lens, centers, T: int, W: int,
                        S: int, NWIN: int, lead_free: int = -1):
     """Plain PyTorch version of :func:`nw_round`: a Python loop over
-    template rows and traceback steps, vectorized over lanes."""
+    template rows and traceback steps, vectorized over lanes.
+
+    Lanes are independent, so equal lanes (the padding of a dispatch's
+    lane bucket) run once and their outputs are copied."""
+    key = torch.cat([tpl.t().to(torch.int64), reads.to(torch.int64),
+                     t_lens[:, None].to(torch.int64),
+                     read_lens[:, None].to(torch.int64),
+                     centers.t().to(torch.int64)], 1)
+    uniq, inv = torch.unique(key, dim=0, return_inverse=True)
+    if len(uniq) == len(key):
+        return _nw_round_lanes(tpl, t_lens, reads, read_lens, centers, T, W,
+                               S, NWIN, lead_free)
+    RL = reads.shape[1]
+    cols = [0, T, T + RL, T + RL + 1, T + RL + 2, uniq.shape[1]]
+    u_tpl, u_reads, u_tl, u_rl, u_cen = (uniq[:, a:b] for a, b in
+                                         zip(cols, cols[1:]))
+    out = _nw_round_lanes(u_tpl.t().to(tpl.dtype), u_tl[:, 0].to(t_lens.dtype),
+                          u_reads.to(reads.dtype), u_rl[:, 0].to(read_lens.dtype),
+                          u_cen.t().to(centers.dtype), T, W, S, NWIN, lead_free)
+    return tuple(x[inv] for x in out)
+
+
+def _nw_round_lanes(tpl, t_lens, reads, read_lens, centers, T: int, W: int,
+                    S: int, NWIN: int, lead_free: int = -1):
     dev = tpl.device
     i64 = torch.int64
     N, RL = reads.shape

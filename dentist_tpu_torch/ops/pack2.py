@@ -7,10 +7,10 @@ inputs through the same formula (``csrc/pack2.cuh``).
 
 :func:`pack2bit` gives the bytes of ``dentist_tpu.ops.banded._pack2bit``
 for every input, codes above 3 included: it uses the same native
-word-wise packer of ``dentist_tpu.native`` when the library loads (it
-keeps the low two bits of each code), and the same numpy shift-or when
-it does not (which keeps all bits, so a code above 3 spills into its
-neighbours).  :func:`unpack2bit` is the plain PyTorch inverse, JAX's
+word-wise packer (``native/``, loaded by the port's copy of the JAX
+package's ``native`` module) when the library loads (it keeps the low
+two bits of each code), and the same numpy shift-or when it does not
+(which keeps all bits, so a code above 3 spills into its neighbours).  :func:`unpack2bit` is the plain PyTorch inverse, JAX's
 ``_unpack2bit``.
 
 ``seconds`` and ``calls`` count the host time :func:`pack2bit` takes
@@ -48,7 +48,7 @@ def pack2bit(a: np.ndarray) -> np.ndarray:
 
 
 def _pack(a: np.ndarray) -> np.ndarray:
-    from dentist_tpu.native import _load
+    from ..native import _load
 
     lib = _load()
     if lib is not None:

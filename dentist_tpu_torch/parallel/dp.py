@@ -32,9 +32,8 @@ from datetime import timedelta
 import torch
 import torch.distributed as dist
 
-from dentist_tpu.utils.log import log_json
-
 from ..device import get_device, require_cuda
+from ..utils.log import log_json
 
 __all__ = ["DPGroup", "init_distributed", "default_group", "rank_device",
            "dispatch_workers", "pad_lanes", "local_lanes", "gather_lanes",

@@ -39,16 +39,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from dentist_tpu.io.fasta import FastaRecord
-from dentist_tpu.models.alignments import TRACE_SPACING
-from dentist_tpu.models.output import OutputConfig, build_output, write_output
-from dentist_tpu.models.sequences import (SeqStore, load_assembly, load_reads,
-                                          split_scaffolds)
-from dentist_tpu.models.validate import ValidateConfig, validate_regions
-from dentist_tpu.utils.log import (STAGE_SECONDS, log_json,  # noqa: F401
-                                   reset_stage_seconds, trace_execution)
-from dentist_tpu.utils.regions import Region
-
+from .io.fasta import FastaRecord
+from .models.alignments import TRACE_SPACING
 from .models.mask import (
     coverage_mask,
     dust_mask,
@@ -60,11 +52,18 @@ from .models.mask import (
     tandem_mask,
     validation_min_coverage,
 )
+from .models.output import OutputConfig, build_output, write_output
 from .models.pileups import ChainCtx, CollectConfig, collect_pile_ups
 from .models.process import ProcessConfig, process_pile_ups
+from .models.sequences import (SeqStore, load_assembly, load_reads,
+                               split_scaffolds)
+from .models.validate import ValidateConfig, validate_regions
 from .ops.aligner import AlignerConfig, align_store_pair
 from .ops.mapper import MapperConfig, map_reads
 from .parallel.dp import barrier, default_group
+from .utils.log import (STAGE_SECONDS, log_json,  # noqa: F401
+                        reset_stage_seconds, trace_execution)
+from .utils.regions import Region
 
 
 def _chain_spans(las, chains):
@@ -117,7 +116,7 @@ def run_pipeline(assembly_path, reads_path, out_path, cfg: PipelineConfig | None
     cfg = cfg or PipelineConfig()
     writer = _is_writer(default_group())
     if cfg.workdir and writer:  # persist the event log for lost-gaps analysis
-        from dentist_tpu.utils.log import tee_log_file
+        from .utils.log import tee_log_file
 
         os.makedirs(cfg.workdir, exist_ok=True)
         tee_log_file(os.path.join(cfg.workdir, "pipeline.log"))
@@ -513,7 +512,7 @@ class _ResumeState:
         if not self._have("dust.mask.npz", "repeats.mask.npz",
                           "repeats-H.mask.npz", "reads.las.npz"):
             return None
-        from dentist_tpu.io.store import load_alignments, load_mask
+        from .io.store import load_alignments, load_mask
 
         with trace_execution("resume.masks"):
             dust = load_mask(os.path.join(self.dir, "dust.mask.npz"))
@@ -526,7 +525,7 @@ class _ResumeState:
     def load_pile_ups(self):
         if not self._have("pile-ups.npz"):
             return None
-        from dentist_tpu.io.store import load_pile_ups
+        from .io.store import load_pile_ups
 
         pile_ups = load_pile_ups(os.path.join(self.dir, "pile-ups.npz"))
         log_json("info", event="resumeStage", stage="collect",
@@ -536,7 +535,7 @@ class _ResumeState:
     def load_insertions(self):
         if not self._have("insertions.npz"):
             return None
-        from dentist_tpu.io.store import load_insertions
+        from .io.store import load_insertions
 
         insertions = load_insertions(os.path.join(self.dir, "insertions.npz"))
         log_json("info", event="resumeStage", stage="process",
@@ -572,8 +571,8 @@ def _checkpoint(cfg: PipelineConfig, masks=None, las=None, pile_ups=None,
     the other ranks write nothing."""
     if not cfg.workdir or not _is_writer(default_group()):
         return
-    from dentist_tpu.io.store import (save_alignments, save_insertions,
-                                      save_mask, save_pile_ups)
+    from .io.store import (save_alignments, save_insertions,
+                           save_mask, save_pile_ups)
 
     os.makedirs(cfg.workdir, exist_ok=True)
     if masks:
@@ -588,6 +587,6 @@ def _checkpoint(cfg: PipelineConfig, masks=None, las=None, pile_ups=None,
 
 
 def _str_codes(s: str) -> np.ndarray:
-    from dentist_tpu.io.fasta import seq_to_codes
+    from .io.fasta import seq_to_codes
 
     return seq_to_codes(s.lower())

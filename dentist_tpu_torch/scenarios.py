@@ -20,12 +20,12 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from dentist_tpu.io.fasta import (FastaRecord, codes_to_seq, read_fasta,
-                                  write_fasta)
-from dentist_tpu.sim.genome import random_genome
-from dentist_tpu.sim.partial import build_partial_assembly, random_gaps
-from dentist_tpu.sim.reads import simulate_reads
-from dentist_tpu.utils.regions import Region
+from .io.fasta import (FastaRecord, codes_to_seq, read_fasta,
+                       write_fasta)
+from .sim.genome import random_genome
+from .sim.partial import build_partial_assembly, random_gaps
+from .sim.reads import simulate_reads
+from .utils.regions import Region
 
 __all__ = ["Scenario", "e2e_scenario", "phase_a_scenario", "write_scenario",
            "closed_exactly", "closed_exactly_in"]

@@ -1,7 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on the card.
 
 Each kernel runs in its unpacked mode and in its 2-bit packed mode
-(K1p, K2p, K3p).  Skipped where there is no GPU (a CUDA kernel has no CPU or interpret
+(K1p, K2p, K3p); K2r, K4 and K4w (both modes) and K5 too.  Skipped where there is no GPU (a CUDA kernel has no CPU or interpret
 mode); on a machine with one, run ``python -m pytest --noconftest -m cuda
 tests/test_torch_kernels_cuda.py`` (``tests/conftest.py`` imports JAX).  Inputs are seeded numpy arrays at
 small shapes; every output must be bit-equal (integer DPs).
@@ -14,6 +14,7 @@ import torch
 from dentist_tpu_torch.ops import banded as K1
 from dentist_tpu_torch.ops import nw_dist as K3
 from dentist_tpu_torch.ops import nw_round as K2
+from dentist_tpu_torch.ops import round_pack as K4
 from dentist_tpu_torch.ops.pack2 import pack2bit
 
 pytestmark = pytest.mark.cuda
@@ -166,3 +167,74 @@ def test_nw_dist_packed_kernel_equals_plain(cuda):
     assert K3.packed_launches == n0 + 1
     assert torch.equal(got, K3.nw_dist_pairs_packed_reference(c, m, TW, TWp,
                                                               RW, NB))
+
+
+def _packed_lanes(seed, T, RL, N):
+    tpl, t_lens, reads, r_lens, centers = _lanes(seed, T, RL, N)
+    steps = np.diff(centers, axis=0).astype(np.uint8).T
+    chars = np.concatenate([pack2bit(np.ascontiguousarray(tpl.T)),
+                            pack2bit(reads), pack2bit(steps)], 1)
+    return chars, t_lens, r_lens, centers
+
+
+@pytest.mark.parametrize("sparse", [True, False])
+def test_round_pack_kernel_equals_plain(cuda, sparse):
+    T, RL, N = 512, 1024, 16
+    chars, t_lens, r_lens, centers = _packed_lanes(7, T, RL, N)
+    meta = np.stack([t_lens, r_lens, centers[0]]).astype(np.int32)
+    c, m = torch.from_numpy(chars).to(cuda), torch.from_numpy(meta).to(cuda)
+    cen = torch.empty((N, T + 1), dtype=torch.int32, device=cuda)
+    fields = K2.nw_round_packed(c, m, T=T, RL=RL, W=128, S=T + RL, NWIN=5,
+                                centers_out=cen)
+    n0 = (K4.sparse_launches, K4.dense_launches)
+    got = K4.round_pack(c, fields, cen, T, RL, 5, sparse)
+    torch.cuda.synchronize()
+    assert (K4.sparse_launches, K4.dense_launches) == (n0[0] + sparse,
+                                                       n0[1] + (not sparse))
+    assert torch.equal(got, K4.round_pack_reference(c, fields, cen, T, RL, 5,
+                                                    sparse))
+
+
+@pytest.mark.parametrize("sparse", [True, False])
+def test_resident_round_and_window_pack_kernels_equal_plain(cuda, sparse):
+    T, RL, N = 192, 384, 64
+    rng = np.random.default_rng(8)
+    store = rng.integers(0, 4, 1 << 16).astype(np.uint8)
+    meta = np.zeros((5, N), np.int32)
+    for n in range(N):
+        t0, s0 = 500 + 1000 * n, 1000 * n + 900
+        tl = int(rng.integers(130, T + 1))
+        keep = rng.random(tl) > 0.1
+        seg = store[t0 : t0 + tl][keep]
+        store[s0 : s0 + len(seg)] = seg
+        meta[:, n] = (tl, len(seg), min(33, tl - 126), t0, s0)
+    meta[3, -1] = (1 << 16) - 50  # a start the store clamps
+    s, m = torch.from_numpy(store).to(cuda), torch.from_numpy(meta).to(cuda)
+    kw = dict(T=T, RL=RL, W=128, S=T + RL, NWIN=2, lead_free=16)
+    cen = torch.empty((N, T + 1), dtype=torch.int32, device=cuda)
+    n0 = K2.resident_launches
+    fields = K2.nw_round_resident(s, m, centers_out=cen, **kw)
+    torch.cuda.synchronize()
+    assert K2.resident_launches == n0 + 1
+    ref = K2.nw_round_resident(s.cpu(), m.cpu(), **kw)
+    for g, r in zip(fields, ref):
+        assert g.dtype == r.dtype and torch.equal(g.cpu(), r)
+    got = K4.window_pack(s, m, fields[:3], cen, sparse, resident=True)
+    want = K4.window_pack_reference(s, m, fields[:3], cen, sparse,
+                                    resident=True)
+    assert torch.equal(got, want)
+
+
+def test_store_write_kernel_equals_plain(cuda):
+    rng = np.random.default_rng(9)
+    packed = torch.from_numpy(rng.integers(0, 256, 1 << 18).astype(np.uint8))
+    store = torch.zeros(3 << 20, dtype=torch.uint8, device=cuda)
+    n0 = K1.store_write_launches
+    K1.store_write(packed.to(cuda), store, 4096)
+    K1.store_write(packed[:1000].to(cuda), store, (2 << 20) + 3)  # unaligned
+    torch.cuda.synchronize()
+    assert K1.store_write_launches == n0 + 2
+    want = torch.zeros(3 << 20, dtype=torch.uint8)
+    K1.store_write_reference(packed, want, 4096)
+    K1.store_write_reference(packed[:1000], want, (2 << 20) + 3)
+    assert torch.equal(store.cpu(), want)

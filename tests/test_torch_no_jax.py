@@ -1,12 +1,17 @@
-"""The port needs no JAX, and without a GPU it refuses to run.
+"""The port needs neither JAX nor the JAX package, and without a GPU it
+refuses to run.
 
-Both checks run in subprocesses: one imports the port with every
-``jax`` import blocked; the other runs ``chip_smoke.py`` on a machine
-without a GPU, which must fail without printing a result — there is no
-silent CPU fallback on the main path.
+The checks run in subprocesses: they import every module of the port,
+and build the 60 kb scenario, with every ``jax`` and ``dentist_tpu``
+import blocked (``dentist_tpu_torch`` stays importable); a static check
+reads every file of the port for such imports; and ``chip_smoke.py``
+runs on a machine without a GPU, where it must fail without printing a
+result — there is no silent CPU fallback on the main path.
 """
 
+import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -14,15 +19,21 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+#: top-level packages the port must not import
+_BLOCKED = ("jax", "dentist_tpu")
+
 _BLOCK_JAX = """
 import builtins, sys
 _real = builtins.__import__
-def _no_jax(name, *a, **k):
-    if name == "jax" or name.startswith("jax."):
-        raise ImportError("jax is blocked")
-    return _real(name, *a, **k)
+_blocked = ("jax", "dentist_tpu")
+def _is_blocked(name):
+    return any(name == b or name.startswith(b + ".") for b in _blocked)
+def _no_jax(name, globals=None, locals=None, fromlist=(), level=0):
+    if level == 0 and _is_blocked(name):
+        raise ImportError(name + " is blocked")
+    return _real(name, globals, locals, fromlist, level)
 builtins.__import__ = _no_jax
-for m in [m for m in sys.modules if m == "jax" or m.startswith("jax.")]:
+for m in [m for m in sys.modules if _is_blocked(m)]:
     del sys.modules[m]
 """
 
@@ -40,22 +51,66 @@ def test_port_imports_without_jax():
 import dentist_tpu_torch, dentist_tpu_torch.pipeline, dentist_tpu_torch.__main__
 import dentist_tpu_torch.scenarios, dentist_tpu_torch.parallel.dp
 import dentist_tpu_torch.dryrun, dentist_tpu_torch.ops.pack2
-assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
+assert not any(_is_blocked(m) for m in sys.modules)
 print("imported")
 """)
     assert proc.returncode == 0, proc.stderr
     assert "imported" in proc.stdout
 
 
+def test_every_port_module_imports_without_jax_or_the_jax_package():
+    proc = _run(_BLOCK_JAX + """
+import importlib, pkgutil
+import dentist_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(dentist_tpu_torch.__path__,
+                                               "dentist_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+assert not any(_is_blocked(m) for m in sys.modules)
+print("imported", len(names))
+""")
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 40, proc.stdout
+
+
+def test_e2e_scenario_builds_without_jax_or_the_jax_package():
+    proc = _run(_BLOCK_JAX + """
+from dentist_tpu_torch import scenarios
+sc = scenarios.e2e_scenario()
+assert len(sc.reads) > 100 and len(sc.assembly) == 1
+assert not any(_is_blocked(m) for m in sys.modules)
+print("built", len(sc.reads))
+""")
+    assert proc.returncode == 0, proc.stderr
+    assert "built" in proc.stdout
+
+
+def _imported_packages(text: str) -> set:
+    """Top-level packages the absolute imports of ``text`` name."""
+    names = set()
+    for node in ast.walk(ast.parse(text)):
+        if isinstance(node, ast.Import):
+            names |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module.split(".")[0])
+    return names
+
+
 def test_no_file_of_the_port_imports_jax():
     pkg = os.path.join(ROOT, "dentist_tpu_torch")
+    n = 0
     for dirpath, _, files in os.walk(pkg):
         for f in files:
             if f.endswith(".py"):
                 text = open(os.path.join(dirpath, f)).read()
-                assert "import jax" not in text and "from jax" not in text, f
+                assert not _imported_packages(text) & set(_BLOCKED), f
+                assert not re.search(r"\b(import|from)\s+(jax|dentist_tpu)\b(?!_)",
+                                     text), f
+                n += 1
+    assert n >= 40
     smoke = open(os.path.join(ROOT, "chip_smoke.py")).read()
     assert "jax" not in smoke.replace("JAX", "")
+    assert not _imported_packages(smoke) & set(_BLOCKED)
     assert "import dentist_tpu\n" not in smoke and "from dentist_tpu." not in smoke
 
 

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import dentist_tpu.native as native
+import dentist_tpu_torch.native as port_native
 import dentist_tpu.ops.banded as B
 from dentist_tpu.ops import consensus as C
 from dentist_tpu.sim.reads import _mutate
@@ -29,11 +30,15 @@ from dentist_tpu_torch.ops.pack2 import pack2bit, unpack2bit
 
 @pytest.fixture(params=["native", "numpy"])
 def packer(request, monkeypatch):
-    """Run a test with the native packer, then with the numpy one."""
+    """Run a test with the native packer, then with the numpy one (the
+    JAX package and the port each load the library through their own
+    ``native`` module)."""
     if request.param == "numpy":
         monkeypatch.setattr(native, "_load", lambda: None)
+        monkeypatch.setattr(port_native, "_load", lambda: None)
     else:
         assert native._load() is not None, "the native library must build"
+        assert port_native._load() is not None, "the native library must build"
     return request.param
 
 

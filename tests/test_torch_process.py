@@ -50,13 +50,16 @@ def scenario():
 
 @pytest.fixture
 def events(monkeypatch):
-    """Outside strict mode, on the CPU; yields the logged event names."""
+    """Outside strict mode, on the CPU; yields the event names that the
+    port's log and the JAX package's log wrote."""
     import dentist_tpu.utils.log as log
+    import dentist_tpu_torch.utils.log as port_log
 
     set_device("cpu")
     monkeypatch.delenv("DENTIST_TPU_STRICT", raising=False)
     stream = io.StringIO()
     monkeypatch.setattr(log, "_stream", stream)
+    monkeypatch.setattr(port_log, "_stream", stream)
     yield lambda: [json.loads(line).get("event")
                    for line in stream.getvalue().splitlines()]
 
