@@ -10,9 +10,10 @@ Phases (any failure exits non-zero and prints no result line):
 2. Build: compiles the kernels from ``dentist_tpu_torch/csrc/``, one
    ``nvcc`` per source, all started together.
 3. Kernels: each kernel, in each of its modes (K1 and K1p, K2 and K2p
-   full and windowed, K2r, K3 and K3p, K4 and K4w sparse and dense, K5),
-   against its plain PyTorch version on the card, on seeded inputs at the
-   main path's shapes.  The kernels are integer, so the tolerance is 0:
+   full and windowed, K2r, K3 and K3p, K4 and K4w sparse and dense, K5,
+   K3f and K3b free-shift and global), against its plain PyTorch version
+   on the card, on seeded inputs at the main path's shapes (K3f at K3's,
+   K3b at a consensus round's).  The kernels are integer, so the tolerance is 0:
    every output must be equal.  Prints each mode's time beside its plain
    version's and its bound (the least time the card could take: bytes
    over HBM bandwidth or integer operations over the INT32 issue rate,
@@ -49,6 +50,25 @@ Phases (any failure exits non-zero and prints no result line):
 9. Dense transport: the 60 kb scenario through ``run_pipeline`` with
    ``DENTIST_TPU_DENSE_CONS=1`` (host windows, dense blocks); the outputs
    must hash as in phase 4.
+10. Staged workflow: the 3 Mb scenario through the command line's
+   ``cli.main``, one sub-command per stage as DENTIST's Snakemake DAG
+   runs them (``scenarios.staged_commands``: masks, ``align``, ``map``,
+   ``collect``, ``process`` in two batches, ``merge-insertions``,
+   ``output``, ``check-results``), each stage timed with its launches.
+   ``map`` must have launched K1 or K1p (so must ``align`` where it
+   writes alignments: on this repeat-free genome it writes none, as in
+   JAX), the two ``process`` batches K2p, K2r, K3p, K4, K4w and K5
+   together; the FASTA, AGP, BED
+   and scaffolding maps must hash to the JAX package's staged run, and
+   the gaps closed and closed byte-exact must be at least its counts.
+11. Repeats: the staged workflow's masking stages (``dust``, ``tandem``,
+   ``align``, the self-coverage ``mask``) through ``cli.main`` on a 1 Mb
+   assembly with planted interspersed repeats and tandem arrays
+   (``scenarios.repeat_assembly``); ``tandem`` and ``align`` must have
+   launched K1 or K1p and found tandem intervals and as many
+   self-alignments as the JAX package, and the tandem mask, the
+   self-alignments and the self-coverage mask must hash (array by array)
+   to the JAX package's.
 
 The last lines of standard output are the card's ``nvidia-smi`` line,
 the kernels' JSON record and ``{"ok": true, "device": {...}}``.  The
@@ -57,7 +77,11 @@ launches in the run that drives it and its times and bound from phase 3:
 K1, K2p, K2r, K3p, K4 and K4w sparse, K5 on the main path (phase 5), K1p
 in phase 7, K4 and K4w dense in phase 9.  K2 and K3 run only in their
 2-bit modes; their unpacked modes are the oracles phase 3 holds K2p and
-K3p against, and are timed in its log.
+K3p against, and are timed in its log.  K3f and K3b (the JAX package's
+``_nw_dist_full`` with free-shift ends and ``_banded_nw_dist``) are on no
+path: nothing in the JAX package calls them, its polish scorer being
+``_nw_dist_pair_packed`` (K3p), so nothing in the port does; their
+record carries their launches in phase 3.
 """
 
 import hashlib
@@ -90,6 +114,40 @@ PHASE_A_SHA256 = {
     "out.fasta": "572fb62b403c2fb5875b5e0f7783717497c972a7f4781525950e4742f8d0a841",
     "out.agp": "f231fb48b66abb60280707599ba6ff0477711f0a0a168ee432d182f449d58f0c",
     "out.closed-gaps.bed": "b6efeff815e249ab368f5cae9d7e8df79bb73401f4c9b7b5f39a00cdfc1fac4c",
+}
+
+# Phase-10 constants: sha256 of the outputs of the JAX package's staged
+# run of the same sub-commands, one process per stage,
+#   JAX_PLATFORMS=cpu DENTIST_TPU_FORCE_SINGLE=1 python -m dentist_tpu.cli <argv>
+# for each argv of ``dentist_tpu_torch.scenarios.staged_commands(dir)``,
+# on the files ``write_scenario(phase_a_scenario(), dir)`` and
+# ``write_truth(phase_a_scenario(), dir)`` write (x86-64 CPU, JAX on its
+# CPU backend).  It closes all 16 gaps (check-results' numClosedGaps),
+# 15 byte-exact, and its FASTA, AGP and BED equal the pipeline's above.
+STAGED_JAX_CLOSED = 16
+STAGED_JAX_EXACT = 15
+STAGED_SHA256 = {
+    "out.fasta": "572fb62b403c2fb5875b5e0f7783717497c972a7f4781525950e4742f8d0a841",
+    "out.agp": "f231fb48b66abb60280707599ba6ff0477711f0a0a168ee432d182f449d58f0c",
+    "out.closed-gaps.bed": "b6efeff815e249ab368f5cae9d7e8df79bb73401f4c9b7b5f39a00cdfc1fac4c",
+    "scaffolding.json": "e66362251991e9990b4457673e83d646ec8f9e4be1a15df98b6058f7b1dbd144",
+}
+
+# Phase-11 constants: the JAX package's run of the first four argvs of
+# ``staged_commands(dir)`` (dust, tandem, align, the self-coverage mask),
+# in one process through ``dentist_tpu.cli.main([*argv, "-q"])`` with
+# JAX_PLATFORMS=cpu DENTIST_TPU_FORCE_SINGLE=1 (x86-64 CPU, JAX on its CPU
+# backend), on the ``assembly.fasta`` that ``write_fasta`` writes from
+# ``repeat_assembly(1_000_000, 16)`` (sha256 below): 4 tandem intervals,
+# 226 self-alignments, 15 self-coverage intervals; ``npz_sha256`` of its
+# files.
+REPEATS_LENGTH, REPEATS_COPIES = 1_000_000, 16
+REPEATS_ASSEMBLY_SHA256 = "8aba22ababdd96052d6c885315a841ab7912a5f8740af789eb85b5a6e1a29f57"
+REPEATS_JAX_ALIGNMENTS = 226
+REPEATS_SHA256 = {
+    "tan.mask.npz": "460279c8b290a49a87226fadc6bf671c83f368c3a963d945de82070c36097180",
+    "self.las.npz": "7dc22fe76d45c5b87791365a16f0a2d88f9765af27432456c002cd430aafcc88",
+    "self.mask.npz": "06e6cd33cb9ed3e62b556aeff70dae0565a7f68cf70a70ccb9e048fe1468df93",
 }
 
 #: phase-6 runs: the later calls of a process, without its first-call costs
@@ -409,6 +467,54 @@ def resident_case(store, rng, N: int):
     return torch.from_numpy(meta).cuda()
 
 
+def scorer_case(rng, V: int, N: int, T: int, RL: int, over_slope: bool):
+    """K3f and K3b inputs on the general layout: template windows of T/2
+    to T chars (one in seven a homopolymer), each against N noisy copies
+    of itself; with ``over_slope`` one template in four is 32 to 64 chars
+    against reads of up to RL chars that repeat it (rl >> t_len)."""
+    import torch
+
+    tpl = np.zeros((V, T), np.uint8)
+    t_lens = np.zeros(V, np.int32)
+    reads = np.zeros((V, N, RL), np.uint8)
+    r_lens = np.zeros((V, N), np.int32)
+    for v in range(V):
+        short = over_slope and v % 4 == 3
+        L = int(rng.integers(32, 65) if short else rng.integers(T // 2, T + 1))
+        t = (np.full(L, v % 4, np.uint8) if v % 7 == 0
+             else rng.integers(0, 4, L).astype(np.uint8))
+        tpl[v, :L], t_lens[v] = t, L
+        for n in range(N):
+            r = np.concatenate([t] * (RL // L + 1))[: int(rng.integers(RL // 2, RL + 1))] \
+                if short else t.copy()
+            flip = rng.random(len(r)) < 0.1
+            r[flip] = rng.integers(0, 4, int(flip.sum()))
+            r = r[:RL]
+            reads[v, n, : len(r)], r_lens[v, n] = r, len(r)
+    return [torch.from_numpy(a).cuda() for a in (tpl, t_lens, reads, r_lens)]
+
+
+def scorer_work(args, T: int, W=None) -> dict:
+    """K3f's and K3b's bound, from the cells each pair needs: on each of
+    its min(t_len, T) template rows, the read columns 0..rl (K3f), or
+    those of them inside the row's W-cell band (K3b, offsets as
+    ``consensus.py:2005-2007``); the inputs in, the distances out."""
+    tpl, t_lens, reads, r_lens = args
+    RL = reads.shape[2]
+    tl = t_lens.cpu().numpy().astype(np.int64)[:, None, None]  # (V, 1, 1)
+    rl = np.minimum(r_lens.cpu().numpy().astype(np.int64), RL)[..., None]
+    i = np.arange(1, T + 1)  # (T,)
+    if W is None:
+        per_row = rl + 1
+    else:
+        c = (i * rl) // np.maximum(tl, 1)
+        off = np.minimum(np.maximum(c - W // 2, -W // 2),
+                         np.maximum(rl - W // 2, 0))
+        per_row = np.minimum(off + W - 1, rl) - np.maximum(off, 0) + 1
+    cells = int((np.clip(per_row, 0, None) * (i <= tl)).sum())
+    return bound(nbytes(*args) + 4 * r_lens.numel(), OPS_PER_CELL["K3"] * cells)
+
+
 def phase_kernels():
     import torch
 
@@ -608,7 +714,39 @@ def phase_kernels():
         k3p = merge(k3p, st)
     rows.append(("K3p nw_dist_packed", "dentist_tpu_torch/csrc/nw_dist.cu",
                  "dentist_tpu/ops/consensus.py:2065", "main", "K3p", k3p))
-    return rows
+
+    # K3f and K3b, the scorer modes no path runs: K3f at K3's shapes,
+    # K3b at a full consensus round's template and read widths
+    reset_launch_counts()
+    k3f, k3b = {}, {}
+    T, RL, V = 34, 48, 256
+    for N in (8, 32):
+        args = scorer_case(rng, V, N, T, RL, False)
+        for ends in (False, True):
+            st = hold(f"K3f nw_dist_full V={V} N={N} global_ends={ends}",
+                      lambda: nw_dist.nw_dist_full(*args, T=T, global_ends=ends),
+                      lambda: nw_dist.nw_dist_full_reference(*args, T, ends), 10,
+                      scorer_work(args, T))
+            k3f = merge(k3f, st)
+    T, RL, V, N = 512, 640, 64, 32
+    args = scorer_case(rng, V, N, T, RL, True)
+    for W in (64, 65):
+        for ends in (False, True):
+            st = hold(f"K3b banded_nw_dist V={V} N={N} T={T} RL={RL} W={W} "
+                      f"global_ends={ends}",
+                      lambda: nw_dist.banded_nw_dist(*args, T=T, W=W,
+                                                     global_ends=ends),
+                      lambda: nw_dist.banded_nw_dist_reference(*args, T, W, ends),
+                      3, scorer_work(args, T, W))
+            log(f"  {int((st['out'] < nw_dist.INF).sum())}/{V * N} pairs "
+                f"within the band")
+            k3b = merge(k3b, st)
+    phase3 = launch_counts()
+    rows.append(("K3f nw_dist_full", "dentist_tpu_torch/csrc/nw_dist.cu",
+                 "dentist_tpu/ops/consensus.py:1936", "phase3", "K3f", k3f))
+    rows.append(("K3b banded_nw_dist", "dentist_tpu_torch/csrc/nw_dist.cu",
+                 "dentist_tpu/ops/consensus.py:1991", "phase3", "K3b", k3b))
+    return rows, phase3
 
 
 # ----------------------------------------------------------------------
@@ -698,7 +836,7 @@ def phase_a(tmp: str) -> dict:
         fail(f"closed {result.n_closed_gaps} gaps, JAX closes {PHASE_A_JAX_CLOSED}")
     if exact < PHASE_A_JAX_EXACT:
         fail(f"{exact} gaps closed byte-exact, JAX closes {PHASE_A_JAX_EXACT}")
-    return launches
+    return launches, sc
 
 
 def consensus_sections(sections: dict) -> dict:
@@ -897,6 +1035,143 @@ def phase_dense(tmp: str) -> dict:
     return launches
 
 
+def run_stages(commands, what: str):
+    """Each (stage, argv) of ``commands`` through ``cli.main``, the entry
+    point of ``python -m dentist_tpu_torch``, with the launch counts set
+    to 0 before it; returns each stage's wall seconds, launches and
+    printout, and the total seconds."""
+    import contextlib
+    import io
+
+    import torch
+
+    from dentist_tpu_torch import cli
+
+    walls, launches, printed = {}, {}, {}
+    t_all = time.perf_counter()
+    for stage, argv in commands:
+        reset_launch_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main([*argv, "-q"])
+        torch.cuda.synchronize()
+        walls[stage] = time.perf_counter() - t0
+        if rc:
+            fail(f"{what}: {stage} exited {rc}")
+        launches[stage] = {k: v for k, v in launch_counts().items() if v}
+        printed[stage] = buf.getvalue()
+        log(f"{what} {stage}: {walls[stage]:.2f} s; kernel launches "
+            f"{json.dumps(launches[stage])}")
+    return walls, launches, printed, time.perf_counter() - t_all
+
+
+def extended_on_card(d: str, launches: dict, stage: str, out: str,
+                     what: str) -> int:
+    """The alignments ``stage`` wrote to ``out``; fails if it wrote some
+    and launched neither K1 nor K1p."""
+    from dentist_tpu_torch.io.store import load_alignments
+
+    n = len(load_alignments(os.path.join(d, out))[0].a_id)
+    k1 = launches[stage].get("K1", 0) + launches[stage].get("K1p", 0)
+    log(f"  {what} {stage}: {n} alignments")
+    if n and not k1:
+        fail(f"{what} {stage} wrote {n} alignments and launched neither "
+             f"K1 nor K1p")
+    return n
+
+
+def npz_sha256(path: str) -> str:
+    """sha256 of an npz container's arrays (each one's name, dtype, shape
+    and bytes, by name), not of its zip headers, which carry times."""
+    h = hashlib.sha256()
+    with np.load(path, allow_pickle=False) as z:
+        for key in sorted(z.files):
+            a = np.ascontiguousarray(z[key])
+            h.update(f"{key} {a.dtype.str} {a.shape}\n".encode())
+            h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def phase_staged(tmp: str, sc) -> None:
+    """The staged workflow on the 3 Mb scenario through ``cli.main``; each
+    stage timed with its launches."""
+    import shutil
+
+    from dentist_tpu_torch.scenarios import (closed_exactly_in,
+                                             staged_commands, write_truth)
+
+    d = os.path.join(tmp, "staged")
+    os.makedirs(d)
+    for name in ("assembly.fasta", "reads.fasta"):
+        shutil.copy(os.path.join(tmp, "phase_a", name), d)
+    write_truth(sc, d)
+    walls, launches, printed, total = run_stages(staged_commands(d), "staged")
+    # the phase-A assembly is a random genome without repeats, so its
+    # self-alignment (``align``) finds none, as the JAX package's does;
+    # phase 11 runs ``align`` where there are repeats
+    extended_on_card(d, launches, "align", "self.las.npz", "staged")
+    if not extended_on_card(d, launches, "map", "reads.las.npz", "staged"):
+        fail("staged map wrote no alignments")
+    process = {}
+    for stage in ("process-0", "process-1"):
+        for k, v in launches[stage].items():
+            process[k] = process.get(k, 0) + v
+    for mode in ("K2p", "K2r", "K3p", "K4", "K4w", "K5"):
+        if not process.get(mode):
+            fail(f"staged process launched no {mode}: {process}")
+    for name, want in STAGED_SHA256.items():
+        got = sha256(os.path.join(d, name))
+        if got != want:
+            fail(f"staged workflow: {name} sha256 {got} != JAX {want}")
+    stats = json.loads(printed["check-results"])
+    exact = closed_exactly_in(sc, os.path.join(d, "out.fasta"))
+    log(f"staged workflow, 3 Mb / 16 gaps, {len(walls)} stages: {total:.1f} s; "
+        f"gaps closed {stats['numClosedGaps']} ({exact} byte-exact; JAX staged: "
+        f"{STAGED_JAX_CLOSED} closed, {STAGED_JAX_EXACT} byte-exact); FASTA, AGP, "
+        f"BED and scaffolding maps equal to the JAX package's staged run (sha256)")
+    if stats["numClosedGaps"] < STAGED_JAX_CLOSED:
+        fail(f"staged: closed {stats['numClosedGaps']} gaps, JAX closes "
+             f"{STAGED_JAX_CLOSED}")
+    if exact < STAGED_JAX_EXACT:
+        fail(f"staged: {exact} gaps closed byte-exact, JAX {STAGED_JAX_EXACT}")
+
+
+def phase_repeats(tmp: str) -> None:
+    """The masking stages of the staged workflow on an assembly with
+    repeats, where ``tandem`` and ``align`` have alignments to extend."""
+    from dentist_tpu_torch.io.fasta import codes_to_seq, write_fasta
+    from dentist_tpu_torch.io.store import load_mask
+    from dentist_tpu_torch.scenarios import repeat_assembly, staged_commands
+
+    d = os.path.join(tmp, "repeats")
+    os.makedirs(d)
+    asm = os.path.join(d, "assembly.fasta")
+    write_fasta(asm, [(r.header, codes_to_seq(r.codes))
+                      for r in repeat_assembly(REPEATS_LENGTH, REPEATS_COPIES)])
+    if sha256(asm) != REPEATS_ASSEMBLY_SHA256:
+        fail(f"repeats: assembly.fasta sha256 {sha256(asm)} != "
+             f"{REPEATS_ASSEMBLY_SHA256}")
+    stages = staged_commands(d)[:4]
+    _, launches, _, total = run_stages(stages, "repeats")
+    n = extended_on_card(d, launches, "align", "self.las.npz", "repeats")
+    tan = len(load_mask(os.path.join(d, "tan.mask.npz")))
+    k1 = launches["tandem"].get("K1", 0) + launches["tandem"].get("K1p", 0)
+    log(f"repeats, {REPEATS_LENGTH // 1000} kb / {REPEATS_COPIES} copies, "
+        f"{len(stages)} stages: {total:.1f} s; {tan} tandem intervals, {n} "
+        f"self-alignments (JAX: {REPEATS_JAX_ALIGNMENTS})")
+    if not k1 or not tan:
+        fail(f"repeats tandem: {tan} intervals, {k1} K1/K1p launches")
+    if n != REPEATS_JAX_ALIGNMENTS:
+        fail(f"repeats align: {n} self-alignments, JAX {REPEATS_JAX_ALIGNMENTS}")
+    for name, want in REPEATS_SHA256.items():
+        got = npz_sha256(os.path.join(d, name))
+        if got != want:
+            fail(f"repeats: {name} arrays sha256 {got} != JAX {want}")
+    log(f"  tandem, self-alignment and self-coverage masks equal to the JAX "
+        f"package's (arrays sha256)")
+
+
 def main() -> None:
     try:
         import torch
@@ -936,13 +1211,13 @@ def main() -> None:
             log(f"  {line.strip()}")
 
     # 3. kernels against their plain versions
-    rows = phase_kernels()
+    rows, phase3 = phase_kernels()
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         # 4. main path, small, against the JAX package's hashes
         phase_e2e(tmp)
         # 5. main path at real size
-        launches = phase_a(tmp)
+        launches, sc = phase_a(tmp)
         # 6. where the time goes in later calls
         phase_profile(tmp, PROFILE_CALLS)
         # 7. host-window path on the card
@@ -951,10 +1226,16 @@ def main() -> None:
         phase_two_ranks(tmp)
         # 9. the dense consensus transport
         dense = phase_dense(tmp)
+        # 10. the staged workflow through the command line
+        phase_staged(tmp, sc)
+        # 11. the masking stages where there are repeats
+        phase_repeats(tmp)
 
     # each mode's launches in the run that drives it: phase 5 (the main
-    # path), phase 7 for K1p, phase 9 for the dense K4 and K4w
-    runs = {"main": launches, "host_windows": host_windows, "dense": dense}
+    # path), phase 7 for K1p, phase 9 for the dense K4 and K4w, phase 3
+    # for K3f and K3b, which no path runs
+    runs = {"main": launches, "host_windows": host_windows, "dense": dense,
+            "phase3": phase3}
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": runs[run][mode],
                 "max_abs_err": stats["err"], "ms": stats["ms"],

@@ -1,7 +1,8 @@
 """The one device the port runs on, chosen by the caller.
 
-Nothing picks a device implicitly: the entry point (``__main__``,
-``chip_smoke.py``, a test) calls :func:`set_device`, and every module
+Nothing picks a device implicitly: the entry point (``cli.main`` for
+its device sub-commands, ``chip_smoke.py``, a test) calls
+:func:`set_device`, and every module
 that allocates on the device asks :func:`get_device`.  A run asked for
 ``cuda`` on a machine without a GPU fails in :func:`require_cuda`
 instead of quietly running the plain CPU versions of the kernels.

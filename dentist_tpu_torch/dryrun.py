@@ -48,14 +48,15 @@ def free_port() -> int:
 
 def launch_counts() -> dict:
     """Launches of each kernel mode in this process: K1, K1p, K2, K2p,
-    K2r, K3, K3p, K4 (sparse) and K4dense, K4w (sparse) and K4wdense,
-    K5."""
+    K2r, K3, K3p, K3f, K3b, K4 (sparse) and K4dense, K4w (sparse) and
+    K4wdense, K5."""
     from .ops import banded, nw_dist, nw_round, round_pack
 
     return {"K1": banded.launches, "K1p": banded.packed_launches,
             "K2": nw_round.launches, "K2p": nw_round.packed_launches,
             "K2r": nw_round.resident_launches,
             "K3": nw_dist.launches, "K3p": nw_dist.packed_launches,
+            "K3f": nw_dist.full_launches, "K3b": nw_dist.banded_launches,
             "K4": round_pack.sparse_launches,
             "K4dense": round_pack.dense_launches,
             "K4w": round_pack.window_sparse_launches,
@@ -71,7 +72,8 @@ def reset_launch_counts() -> None:
                                  "store_write_launches")),
                        (nw_round, ("launches", "packed_launches",
                                    "resident_launches")),
-                       (nw_dist, ("launches", "packed_launches")),
+                       (nw_dist, ("launches", "packed_launches",
+                                  "full_launches", "banded_launches")),
                        (round_pack, ("sparse_launches", "dense_launches",
                                      "window_sparse_launches",
                                      "window_dense_launches"))):

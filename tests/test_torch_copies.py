@@ -4,11 +4,17 @@ The port imports nothing of ``dentist_tpu``; it keeps its own copy of
 each host module it needs, at the same relative path.  A copy may differ
 from its origin only in its import lines (the origins import relatively,
 so today the copies are byte-identical): any other difference would be a
-fork, and a parity fault.  The port's ``cli.py`` holds the JAX CLI's
-sub-command names, prefix matching and argument definitions; they must
-parse as the JAX package's do.
+fork, and a parity fault.  Citations of the DENTIST reference's sources
+are compared relative to its checkout (a copy names
+``source/dentist/...`` where its origin names the checkout's path).
+The port's ``cli.py`` holds the JAX CLI's
+sub-command names, prefix matching and argument definitions, which must
+parse as the JAX package's do, and its handlers and their helpers, whose
+source must equal the JAX package's, import lines aside.
 """
 
+import ast
+import inspect
 import os
 import re
 
@@ -23,14 +29,22 @@ COPIES = [
     "models/sequences.py", "models/output.py", "models/validate.py",
     "models/mask.py", "models/pileups.py", "ops/seeding.py", "ops/chain.py",
     "native.py", "sim/__init__.py", "sim/genome.py", "sim/partial.py",
-    "sim/reads.py", "config.py",
+    "sim/reads.py", "config.py", "eval/__init__.py", "eval/closable.py",
+    "eval/check_results.py", "eval/check_scaffolding.py", "ops/qv.py",
+    "io/dazzler.py",
 ]
 
 _IMPORT = re.compile(r"^\s*(from\s+\S+\s+import\s|import\s)")
+#: an absolute path to the DENTIST reference's checkout, up to its
+#: sources: a copy may cite them relative to the checkout
+_REF_CHECKOUT = re.compile(r"/\S*/source/dentist/")
 
 
 def _without_imports(path: str) -> list:
-    lines = open(path).read().splitlines()
+    return _strip_imports(open(path).read().splitlines())
+
+
+def _strip_imports(lines: list) -> list:
     out, in_import = [], False
     for line in lines:
         if in_import:  # the continuation lines of a parenthesized import
@@ -47,7 +61,10 @@ def _without_imports(path: str) -> list:
 def test_copy_differs_only_in_imports(rel):
     origin = os.path.join(ROOT, "dentist_tpu", rel)
     copy = os.path.join(ROOT, "dentist_tpu_torch", rel)
-    assert _without_imports(copy) == _without_imports(origin), rel
+    got, want = ([_REF_CHECKOUT.sub("source/dentist/", line)
+                  for line in _without_imports(path)]
+                 for path in (copy, origin))
+    assert got == want, rel
 
 
 def _actions(parser):
@@ -84,3 +101,26 @@ def test_cli_prefix_matching_equals_jax():
                 port_cli.resolve_command(prefix)
         else:
             assert port_cli.resolve_command(prefix) == want, prefix
+
+
+def _cli_functions() -> list:
+    """The JAX CLI's handlers (``cmd_*``) and the helpers they call: every
+    top-level function of ``dentist_tpu/cli.py`` but its parser, prefix
+    matching and ``main``."""
+    tree = ast.parse(open(os.path.join(ROOT, "dentist_tpu", "cli.py")).read())
+    return [n.name for n in tree.body if isinstance(n, ast.FunctionDef)
+            and n.name not in ("command", "resolve_command", "build_parser",
+                               "main")]
+
+
+@pytest.mark.parametrize("name", _cli_functions())
+def test_cli_handler_equals_jax(name):
+    from dentist_tpu import cli as jax_cli
+    from dentist_tpu_torch import cli as port_cli
+
+    want = inspect.getsource(getattr(jax_cli, name)).splitlines()
+    got = inspect.getsource(getattr(port_cli, name)).splitlines()
+    assert _strip_imports(got) == _strip_imports(want), name
+    registered = {fn.__name__: c for c, fn in jax_cli.COMMANDS.items()}
+    if name in registered:  # a handler, under the same sub-command
+        assert port_cli.COMMANDS[registered[name]].__name__ == name

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card.
 
 Each kernel runs in its unpacked mode and in its 2-bit packed mode
-(K1p, K2p, K3p); K2r, K4 and K4w (both modes) and K5 too.  Skipped where there is no GPU (a CUDA kernel has no CPU or interpret
+(K1p, K2p, K3p); K2r, K4 and K4w (both modes), K5, and K3f and K3b (both
+end modes) too.  Skipped where there is no GPU (a CUDA kernel has no CPU or interpret
 mode); on a machine with one, run ``python -m pytest --noconftest -m cuda
 tests/test_torch_kernels_cuda.py`` (``tests/conftest.py`` imports JAX).  Inputs are seeded numpy arrays at
 small shapes; every output must be bit-equal (integer DPs).
@@ -238,3 +239,49 @@ def test_store_write_kernel_equals_plain(cuda):
     K1.store_write_reference(packed, want, 4096)
     K1.store_write_reference(packed[:1000], want, (2 << 20) + 3)
     assert torch.equal(store.cpu(), want)
+
+
+def _general_pairs(seed, V, N, T, RL):
+    """(template, read) pairs on the general layout: empty templates,
+    templates of T and more than T chars, homopolymers, empty reads,
+    noisy copies and reads many times longer than their template."""
+    rng = np.random.default_rng(seed)
+    tpl = rng.integers(0, 4, (V, T)).astype(np.uint8)
+    tpl[::5] = 3
+    t_lens = rng.integers(1, T + 1, V).astype(np.int32)
+    t_lens[::6], t_lens[1::6], t_lens[2::6] = 0, T, T + 3
+    reads = rng.integers(0, 4, (V, N, RL)).astype(np.uint8)
+    r_lens = rng.integers(0, RL + 1, (V, N)).astype(np.int32)
+    r_lens[:, ::4] = 0
+    for v in range(V):
+        t = tpl[v, : min(t_lens[v], T)]
+        for n in range(1, N, 4):
+            r = np.concatenate([t] * 8)[:RL]
+            flip = rng.random(len(r)) < 0.1
+            r[flip] = rng.integers(0, 4, int(flip.sum()))
+            reads[v, n, : len(r)] = r
+            r_lens[v, n] = len(r) if n % 8 == 1 else min(len(r), len(t))
+    return tpl, t_lens, reads, r_lens
+
+
+@pytest.mark.parametrize("global_ends", [False, True])
+def test_nw_dist_full_kernel_equals_plain(cuda, global_ends):
+    T, RL = 34, 48
+    args = [torch.from_numpy(a).to(cuda) for a in _general_pairs(10, 64, 16, T, RL)]
+    n0 = K3.full_launches
+    got = K3.nw_dist_full(*args, T=T, global_ends=global_ends)
+    torch.cuda.synchronize()
+    assert K3.full_launches == n0 + 1
+    assert torch.equal(got, K3.nw_dist_full_reference(*args, T, global_ends))
+
+
+@pytest.mark.parametrize("W", [64, 65])
+@pytest.mark.parametrize("global_ends", [False, True])
+def test_banded_nw_dist_kernel_equals_plain(cuda, W, global_ends):
+    T, RL = 96, 400
+    args = [torch.from_numpy(a).to(cuda) for a in _general_pairs(11, 32, 16, T, RL)]
+    n0 = K3.banded_launches
+    got = K3.banded_nw_dist(*args, T=T, W=W, global_ends=global_ends)
+    torch.cuda.synchronize()
+    assert K3.banded_launches == n0 + 1
+    assert torch.equal(got, K3.banded_nw_dist_reference(*args, T, W, global_ends))

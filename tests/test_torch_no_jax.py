@@ -10,6 +10,7 @@ result — there is no silent CPU fallback on the main path.
 """
 
 import ast
+import json
 import os
 import re
 import subprocess
@@ -51,6 +52,9 @@ def test_port_imports_without_jax():
 import dentist_tpu_torch, dentist_tpu_torch.pipeline, dentist_tpu_torch.__main__
 import dentist_tpu_torch.scenarios, dentist_tpu_torch.parallel.dp
 import dentist_tpu_torch.dryrun, dentist_tpu_torch.ops.pack2
+import dentist_tpu_torch.cli, dentist_tpu_torch.eval.check_results
+import dentist_tpu_torch.eval.check_scaffolding, dentist_tpu_torch.eval.closable
+import dentist_tpu_torch.ops.qv, dentist_tpu_torch.io.dazzler
 assert not any(_is_blocked(m) for m in sys.modules)
 print("imported")
 """)
@@ -125,14 +129,39 @@ def test_chip_smoke_fails_without_gpu():
 
 
 def test_cli_refuses_cuda_without_gpu_and_unported_commands(tmp_path):
+    """Every sub-command is ported: the command line lists all 37 and
+    refuses only names it does not know; without a GPU its device
+    commands refuse to run."""
     import torch
 
-    proc = _run("", "-m", "dentist_tpu_torch", "dust", "a.fasta", "b.npz")
+    proc = _run("", "-m", "dentist_tpu_torch", "--commands")
+    assert proc.returncode == 0, proc.stderr
+    assert len(proc.stdout.split()) == 37
+    proc = _run("", "-m", "dentist_tpu_torch", "nonsense", "a.fasta")
     assert proc.returncode != 0
-    assert "not yet ported to dentist_tpu_torch" in proc.stderr
+    assert "unknown command" in proc.stderr
     if torch.cuda.is_available():
         return
-    proc = _run("", "-m", "dentist_tpu_torch", "pipeline", "a.fasta",
-                "r.fasta", str(tmp_path / "o.fasta"))
-    assert proc.returncode != 0
-    assert "no CUDA device" in proc.stderr
+    for argv in (["pipeline", "a.fasta", "r.fasta", str(tmp_path / "o.fasta")],
+                 ["tandem", "a.fasta", str(tmp_path / "t.mask.npz")]):
+        proc = _run("", "-m", "dentist_tpu_torch", *argv)
+        assert proc.returncode != 0
+        assert "no CUDA device" in proc.stderr
+    assert not os.listdir(tmp_path)
+
+
+def test_cli_runs_host_commands_without_jax_or_the_jax_package(tmp_path):
+    proc = _run(_BLOCK_JAX + f"""
+import json
+from dentist_tpu_torch import cli
+from dentist_tpu_torch.io.store import save_mask
+from dentist_tpu_torch.utils.regions import Region
+path = {str(tmp_path / "m.mask.npz")!r}
+save_mask(path, Region.from_triples([(1, 0, 20), (1, 100, 130), (2, 5, 9)]))
+assert cli.main(["show-mask", path, "-j"]) == 0
+assert cli.main(["generate-config", "--preset", "greedy"]) == 0
+assert not any(_is_blocked(m) for m in sys.modules)
+""")
+    assert proc.returncode == 0, proc.stderr
+    shown = json.loads(proc.stdout.splitlines()[0])
+    assert shown["numIntervals"] == 3 and shown["maskedBp"] == 54
