@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``dentist_tpu_torch``) once on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--baseline-extend PATH]
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -17,7 +17,11 @@ Phases (any failure exits non-zero and prints no result line):
    every output must be equal.  Prints each mode's time beside its plain
    version's and its bound (the least time the card could take: bytes
    over HBM bandwidth or integer operations over the INT32 issue rate,
-   whichever is larger).
+   whichever is larger).  K1 and K1p run after phase 5, at every (R, N)
+   bucket pair it launched K1 at and at (1512, 128) and (13608, 1024),
+   with their ratio to the bound; ``--baseline-extend PATH`` builds
+   another version's ``csrc/extend.cu`` and times its K1 and K1p beside
+   this one's at those two pairs, on the same inputs, in turns.
 4. Main path, small: the 60 kb / 3-gap scenario of ``tests/test_e2e.py``
    through ``python -m dentist_tpu_torch pipeline``; the output FASTA,
    AGP and BED must hash to the JAX package's outputs.
@@ -25,9 +29,11 @@ Phases (any failure exits non-zero and prints no result line):
    phase A through ``run_pipeline``, on the default consensus transport
    (store-resident windows, sparse result blocks, 2-bit store uploads);
    every kernel of that path (K1, K2p, K2r, K3p, K4, K4w, K5) must have
-   launched, the gaps closed (byte-exact against the simulated truth)
-   must be at least as many as the JAX package closes, and the FASTA,
-   AGP and BED must hash to the JAX package's outputs.
+   launched (K1's (R, N, live lanes) are recorded per launch through a
+   wrapper around ``banded.extend``), the gaps closed (byte-exact against
+   the simulated truth) must be at least as many as the JAX package
+   closes, and the FASTA, AGP and BED must hash to the JAX package's
+   outputs.
 6. Profile: ``PROFILE_CALLS`` more phase-A runs in the same process, the
    last under ``torch.profiler``, then one with
    ``DENTIST_TPU_DENSE_CONS=1``; each must hash as phase 5's did.
@@ -525,31 +531,6 @@ def phase_kernels():
     store = banded.device_store()
     rows = []
 
-    # K1 at the main path's window buckets and lane buckets
-    k1, k1p = {}, {}
-    for R, N in ((1512, 128), (13608, 1024)):
-        for bounded in (False, True):
-            meta, num_k = k1_case(store, rng, R, N, bounded)
-            st = hold(f"K1 extend R={R} N={N} diag_bounds={bounded}",
-                      lambda: banded.extend(store.array, meta, num_k, R=R, W=256),
-                      lambda: banded.extend_reference(store.array, meta, num_k,
-                                                      R=R, W=256), 3,
-                      k1_work(meta, R, 256, False))
-            log(f"  {int((st['out'][3] > 0).sum())}/{N} lanes aligned")
-            k1 = merge(k1, st)
-            chars, meta5, num_k = k1p_case(rng, R, N, bounded)
-            st = hold(f"K1p extend_packed R={R} N={N} diag_bounds={bounded}",
-                      lambda: banded.extend_packed(chars, meta5, num_k, R=R, W=256),
-                      lambda: banded.extend_packed_reference(chars, meta5, num_k,
-                                                             R=R, W=256), 3,
-                      k1_work(meta5, R, 256, True))
-            log(f"  {int((st['out'][3] > 0).sum())}/{N} lanes aligned")
-            k1p = merge(k1p, st)
-    rows.append(("K1 extend", "dentist_tpu_torch/csrc/extend.cu",
-                 "dentist_tpu/ops/banded.py:62", "main", "K1", k1))
-    rows.append(("K1p extend_packed", "dentist_tpu_torch/csrc/extend.cu",
-                 "dentist_tpu/ops/banded.py:249", "host_windows", "K1p", k1p))
-
     # K2 and K2p, a windowed round and a full round; K4w and K4 pack
     # K2p's fields (K4 also at the 4 kb template bucket).  The main path
     # runs K2p on full rounds, so the full round is K2p's last case
@@ -749,6 +730,117 @@ def phase_kernels():
     return rows, phase3
 
 
+#: the K1 shapes whose parent kernel ``--baseline-extend`` times, and
+#: where phase 3 also holds lanes with diagonal bounds
+K1_LEGACY = ((1512, 128), (13608, 1024))
+
+
+def build_baseline(path: str):
+    """The extension kernel of ``path`` (a ``csrc/extend.cu`` of another
+    version, with its ``pack2.cuh`` beside it), built with the package's
+    flags into a temporary directory; its two entry points by mode."""
+    import ctypes
+    import shutil
+
+    from dentist_tpu_torch import _build
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_baseline_")
+    try:
+        so = os.path.join(tmp, "libbaseline.so")
+        proc = subprocess.run([_build._nvcc(), *_build._FLAGS, "-shared", "-o", so,
+                               path], capture_output=True, text=True)
+        if proc.returncode:
+            fail(f"baseline {path} did not build:\n{proc.stdout}{proc.stderr}")
+        for line in (proc.stdout + proc.stderr).splitlines():
+            if "Used" in line or "spill" in line:
+                log(f"  baseline {line.strip()}")
+        lib = ctypes.CDLL(so)
+    finally:
+        shutil.rmtree(tmp)
+    fns = {}
+    for name, n_int in (("dentist_extend", 5), ("dentist_extend_packed", 4)):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+def phase_k1(buckets: dict, baseline) -> list:
+    """Phase 3 for K1 and K1p, after phase 5: each against its plain
+    version at every (R, N) bucket pair the main path launched (and at
+    ``K1_LEGACY``), with its time, bound and their ratio; with
+    ``baseline`` (:func:`build_baseline`), the other version's kernel
+    timed beside this one at ``K1_LEGACY`` on the same inputs, in turns
+    (baseline, kernel, kernel, baseline)."""
+    import torch
+
+    from dentist_tpu_torch.ops import banded
+
+    rng = np.random.default_rng(2024)
+    store = banded.device_store()
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    shapes = sorted(set(buckets) | set(K1_LEGACY), key=lambda rn: rn[0] * rn[1])
+    k1, k1p = {}, {}
+    for R, N in shapes:
+        BW = banded.bw_for(R, 256)
+        for bounded in ((False, True) if (R, N) in K1_LEGACY else (False,)):
+            meta, num_k = k1_case(store, rng, R, N, bounded)
+            nd = torch.from_numpy(num_k).cuda()
+            kernel = lambda: banded.extend(store.array, meta, num_k, R=R, W=256)
+            st = hold(f"K1 extend R={R} N={N} diag_bounds={bounded}", kernel,
+                      lambda: banded.extend_reference(store.array, meta, num_k,
+                                                      R=R, W=256), 3,
+                      k1_work(meta, R, 256, False))
+            log(f"  {int((st['out'][3] > 0).sum())}/{N} lanes aligned; "
+                f"{st['ms'] / st['bound_ms']:.2f}x the bound")
+            k1 = merge(k1, st)
+            if baseline and not bounded and (R, N) in K1_LEGACY:
+                out = torch.empty_like(st["out"])
+                old = lambda: baseline["dentist_extend"](
+                    store.array.data_ptr(), meta.data_ptr(), nd.data_ptr(),
+                    out.data_ptr(), store.array.numel(), N, R, 256, BW, stream())
+                compare("K1", R, N, kernel, old, out, st)
+            chars, meta5, num_k = k1p_case(rng, R, N, bounded)
+            nd = torch.from_numpy(num_k).cuda()
+            kernel = lambda: banded.extend_packed(chars, meta5, num_k, R=R, W=256)
+            st = hold(f"K1p extend_packed R={R} N={N} diag_bounds={bounded}",
+                      kernel,
+                      lambda: banded.extend_packed_reference(chars, meta5, num_k,
+                                                             R=R, W=256), 3,
+                      k1_work(meta5, R, 256, True))
+            log(f"  {int((st['out'][3] > 0).sum())}/{N} lanes aligned; "
+                f"{st['ms'] / st['bound_ms']:.2f}x the bound")
+            k1p = merge(k1p, st)
+            if baseline and not bounded and (R, N) in K1_LEGACY:
+                out = torch.empty_like(st["out"])
+                old = lambda: baseline["dentist_extend_packed"](
+                    chars.data_ptr(), meta5.data_ptr(), nd.data_ptr(),
+                    out.data_ptr(), N, R, 256, BW, stream())
+                compare("K1p", R, N, kernel, old, out, st)
+    if not baseline:
+        log("  no --baseline-extend given: no other K1 version timed")
+    return [("K1 extend", "dentist_tpu_torch/csrc/extend.cu",
+             "dentist_tpu/ops/banded.py:62", "main", "K1", k1),
+            ("K1p extend_packed", "dentist_tpu_torch/csrc/extend.cu",
+             "dentist_tpu/ops/banded.py:249", "host_windows", "K1p", k1p)]
+
+
+def compare(what: str, R: int, N: int, kernel, old, out, st: dict) -> None:
+    """The baseline kernel ``old`` (writing ``out``) against ``kernel`` on
+    the same inputs: equal outputs, then both timed in turns."""
+    import torch
+
+    old()
+    torch.cuda.synchronize()
+    if max_abs_err(out, st["out"]):
+        fail(f"{what} baseline != kernel at R={R} N={N}")
+    ms = [cuda_ms(old, 3), cuda_ms(kernel, 3), cuda_ms(kernel, 3), cuda_ms(old, 3)]
+    log(f"  {what} R={R} N={N} baseline, kernel, kernel, baseline ms: "
+        f"{', '.join(f'{m:.3f}' for m in ms)}; equal outputs; kernel "
+        f"{(ms[0] + ms[3]) / (ms[1] + ms[2]):.2f}x faster")
+
+
 # ----------------------------------------------------------------------
 # phases 4 and 5: the main path
 
@@ -795,6 +887,7 @@ def run_phase_a(d: str, asm: str, reads: str, tag: str):
 def phase_a(tmp: str) -> dict:
     import torch
 
+    from dentist_tpu_torch.ops import banded
     from dentist_tpu_torch.pipeline import STAGE_SECONDS, reset_stage_seconds
     from dentist_tpu_torch.scenarios import (closed_exactly_in,
                                              phase_a_scenario, write_scenario)
@@ -804,8 +897,19 @@ def phase_a(tmp: str) -> dict:
     asm, reads = write_scenario(sc, d)
     reset_stage_seconds()
     torch.cuda.reset_peak_memory_stats()
+    shapes = []  # (R, N, a_len row) of each K1 launch
+    extend = banded.extend
+
+    def recorded(store, meta12, num_k, R, W=256):
+        shapes.append((R, meta12.shape[1], meta12[2].clone()))
+        return extend(store, meta12, num_k, R, W)
+
+    banded.extend = recorded
     reset_launch_counts()
-    result, out, wall = run_phase_a(d, asm, reads, "")
+    try:
+        result, out, wall = run_phase_a(d, asm, reads, "")
+    finally:
+        banded.extend = extend
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     n_pileups = None
@@ -821,6 +925,15 @@ def phase_a(tmp: str) -> dict:
         f"({exact} byte-exact; JAX: {PHASE_A_JAX_CLOSED} closed, "
         f"{PHASE_A_JAX_EXACT} byte-exact); peak device memory "
         f"{peak / 2**30:.2f} GiB; kernel launches {json.dumps(launches)}")
+    buckets: dict = {}
+    for R, N, a_len in shapes:
+        row = buckets.setdefault((R, N), [0, 0, 0])
+        row[0] += 1
+        row[1] += int((a_len > 0).sum())
+        row[2] += int(a_len.clamp(0, R).sum())
+    log("  K1 launches by (R, N): " + "; ".join(
+        f"({R}, {N}) x{c}, {live} live lanes, {rows} rows"
+        for (R, N), (c, live, rows) in sorted(buckets.items())))
     for name, want in PHASE_A_SHA256.items():
         got = sha256(os.path.join(d, name))
         if got != want:
@@ -836,7 +949,7 @@ def phase_a(tmp: str) -> dict:
         fail(f"closed {result.n_closed_gaps} gaps, JAX closes {PHASE_A_JAX_CLOSED}")
     if exact < PHASE_A_JAX_EXACT:
         fail(f"{exact} gaps closed byte-exact, JAX closes {PHASE_A_JAX_EXACT}")
-    return launches, sc
+    return launches, sc, buckets
 
 
 def consensus_sections(sections: dict) -> dict:
@@ -1173,6 +1286,13 @@ def phase_repeats(tmp: str) -> None:
 
 
 def main() -> None:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Drive the port once on one GPU.")
+    ap.add_argument("--baseline-extend", metavar="PATH",
+                    help="another version's csrc/extend.cu (pack2.cuh beside "
+                         "it): phase 3 times its K1 and K1p beside this one's")
+    args = ap.parse_args()
     try:
         import torch
     except ImportError:
@@ -1210,14 +1330,17 @@ def main() -> None:
         if "Used" in line or "spill" in line:
             log(f"  {line.strip()}")
 
-    # 3. kernels against their plain versions
+    # 3. kernels against their plain versions (K1 and K1p after phase 5)
     rows, phase3 = phase_kernels()
+    baseline = build_baseline(args.baseline_extend) if args.baseline_extend else None
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         # 4. main path, small, against the JAX package's hashes
         phase_e2e(tmp)
         # 5. main path at real size
-        launches, sc = phase_a(tmp)
+        launches, sc, buckets = phase_a(tmp)
+        # 3, K1 and K1p: at the bucket pairs phase 5 launched
+        rows = phase_k1(buckets, baseline) + rows
         # 6. where the time goes in later calls
         phase_profile(tmp, PROFILE_CALLS)
         # 7. host-window path on the card

@@ -2,17 +2,22 @@
 //
 // Replaces dentist_tpu/ops/banded.py:_unpack2bit, which unpacks a whole
 // (N, X/4) block into an (N, X) array before the DP runs.  Here each
-// thread decodes only the characters it reads, at load time, so the
-// unpacked array never exists: four codes per byte, the first in the
-// high bits (the Dazzler Compress_Read order), as
-// dentist_tpu_torch/ops/pack2.py:pack2bit writes them.
+// thread decodes only the characters it reads, at load time (K2, K3) or
+// when it stages them (K1), so the unpacked array never exists: four
+// codes per byte, the first in the high bits (the Dazzler Compress_Read
+// order), as dentist_tpu_torch/ops/pack2.py:pack2bit writes them.
 
 #pragma once
 
 #include <stdint.h>
 
+// code i of a packed row, from the row's byte i >> 2
+__device__ __forceinline__ int code2_of(int byte, long long i) {
+  return (byte >> (6 - 2 * (int)(i & 3))) & 3;
+}
+
 // code i of the packed row p: (p[i >> 2] >> (6 - 2 (i & 3))) & 3
 __device__ __forceinline__ int code2(const uint8_t* __restrict__ p,
                                      long long i) {
-  return (p[i >> 2] >> (6 - 2 * (int)(i & 3))) & 3;
+  return code2_of(p[i >> 2], i);
 }

@@ -15,6 +15,7 @@ import torch
 import dentist_tpu.ops.banded as B
 import dentist_tpu_torch.ops.banded as TB
 from dentist_tpu_torch.errors import KernelError
+from dentist_tpu_torch.ops.pack2 import pack2bit
 
 
 def _offs(num_k, R, W):
@@ -40,6 +41,72 @@ def _host_lanes(seed, W, N, R, K, a_len=None, b_len=None):
     return a_win, b_win, a_len, b_len, num_k, lane_k, BW
 
 
+#: a_len edges: no row, one row, the kernel's 32-row staging chunks,
+#: JAX's 42-row chunks and the 126-row trace samples (the window's R is
+#: added per case)
+_EDGE_A_LENS = (0, 1, 31, 32, 33, 41, 42, 43, 125, 126, 127)
+
+
+def _max_num(R, W):
+    """The steepest schedule the wrapper takes: 2R (the band moves two
+    columns every row) where the B window allows it, else the widest."""
+    return min(2 * R, TB.bw_for(R, W) - 2 * W - 2 * TB._CHUNK + W // 2 + 1)
+
+
+def _edge_nums(kind, R, W):
+    """Band slopes: every row shifts 0 columns, the steepest slope, or
+    both among ordinary ones."""
+    return np.array({"zero": [0], "max": [_max_num(R, W)],
+                     "mixed": [R, 0, _max_num(R, W), int(0.95 * R)]}[kind],
+                    np.int32)
+
+
+def _edge_a_lens(seed, N, R):
+    lens = np.array([*_EDGE_A_LENS, R], np.int32)
+    return lens[(np.arange(N) + seed) % len(lens)]
+
+
+def _edge_host_lanes(seed, W, N, R, kind):
+    """Host windows at the kernel's edges: a_len on chunk and trace
+    boundaries, flat or steepest schedules, B windows that hold A from
+    column W (even lanes) or with a B column range cut through the band
+    (lanes 3 mod 4: zeros outside it, as the gather writes them)."""
+    rng = np.random.default_rng(seed)
+    BW = TB.bw_for(R, W)
+    a_win = rng.integers(0, 4, (N, R)).astype(np.uint8)
+    b_win = rng.integers(0, 4, (N, BW)).astype(np.uint8)
+    b_win[::2, W : W + R] = a_win[::2]
+    for n in range(3, N, 4):
+        c_lo = W + 20 + n % 17
+        b_win[n, :c_lo] = 0
+        b_win[n, c_lo + R // 2 :] = 0
+    a_len = _edge_a_lens(seed, N, R)
+    b_len = rng.integers(R // 2, int(1.1 * R), N).astype(np.int32)
+    num_k = _edge_nums(kind, R, W)
+    lane_k = (np.arange(N) % len(num_k)).astype(np.int32)
+    return a_win, b_win, a_len, b_len, num_k, lane_k, BW
+
+
+def _jax_packed(a_win, b_win, a_len, b_len, num_k, lane_k, diag_lo, diag_hi,
+                R, W, bound_diag):
+    """JAX's K1p program on the same lanes: ``_extend_scan_v3_packed``."""
+    N = a_win.shape[0]
+    chars = np.concatenate([B._pack2bit(a_win), B._pack2bit(b_win)], axis=1)
+    meta = np.concatenate([b_len, lane_k, a_len, diag_lo, diag_hi,
+                           num_k]).astype(np.int32)
+    return np.asarray(B._extend_scan_v3_packed(
+        jnp.asarray(chars), jnp.asarray(meta), R=R, N=N, K=len(num_k), W=W,
+        bound_diag=bound_diag))
+
+
+def _port_packed(a_win, b_win, a_len, b_len, num_k, lane_k, diag_lo, diag_hi,
+                 R, W):
+    chars = np.concatenate([pack2bit(a_win), pack2bit(b_win)], axis=1)
+    meta5 = np.stack([b_len, lane_k, a_len, diag_lo, diag_hi]).astype(np.int32)
+    return TB.extend_packed(torch.from_numpy(chars), torch.from_numpy(meta5),
+                            num_k, R=R, W=W).numpy()
+
+
 def _port_host_windows(a_win, b_win, a_len, b_len, num_k, lane_k, diag_lo,
                        diag_hi, R, W):
     N = a_win.shape[0]
@@ -52,10 +119,25 @@ def _port_host_windows(a_win, b_win, a_len, b_len, num_k, lane_k, diag_lo,
     return out.numpy()
 
 
-@pytest.mark.parametrize("W,N,R,K,seed", [(64, 16, 252, 4, 11),
-                                          (256, 8, 504, 3, 21)])
-def test_extend_random_lanes_equal_jax(W, N, R, K, seed):
-    a_win, b_win, a_len, b_len, num_k, lane_k, _ = _host_lanes(seed, W, N, R, K)
+#: edge cases at the kernel's widths: W = 32 and 96 (padded bands), 256
+#: (the aligner's), 512 (the widest band with 2R schedules at R = 252);
+#: one lane, a few, and 129 (a ragged last block of four lanes)
+_EDGE_CASES = [(32, 1, 252, "max", 31), (96, 129, 252, "mixed", 32),
+               (256, 5, 252, "zero", 33), (256, 129, 504, "mixed", 34),
+               (512, 129, 252, "max", 35)]
+
+
+@pytest.mark.parametrize("W,N,R,K,seed,kind", [
+    pytest.param(64, 16, 252, 4, 11, None, id="64-16-252-4-11"),
+    pytest.param(256, 8, 504, 3, 21, None, id="256-8-504-3-21"),
+    *[pytest.param(W, N, R, 0, seed, kind, id=f"edges-W{W}-N{N}-R{R}-{kind}")
+      for W, N, R, kind, seed in _EDGE_CASES]])
+def test_extend_random_lanes_equal_jax(W, N, R, K, seed, kind):
+    if kind is None:
+        lanes = _host_lanes(seed, W, N, R, K)
+    else:
+        lanes = _edge_host_lanes(seed, W, N, R, kind)
+    a_win, b_win, a_len, b_len, num_k, lane_k, _ = lanes
     diag_lo = np.full(N, -TB.DIAG_UNBOUNDED, np.int32)
     diag_hi = np.full(N, TB.DIAG_UNBOUNDED, np.int32)
     ref = np.asarray(B._extend_scan_v3(
@@ -68,6 +150,22 @@ def test_extend_random_lanes_equal_jax(W, N, R, K, seed):
     assert ref.shape == got.shape == (4 + R // 126, N)
     assert (ref[0] > 0).any(), "scenario must produce alignments"
     np.testing.assert_array_equal(got, ref)
+    if kind is not None:  # the packed mode on the same lanes
+        args = (a_win, b_win, a_len, b_len, num_k, lane_k, diag_lo, diag_hi, R, W)
+        np.testing.assert_array_equal(_port_packed(*args),
+                                      _jax_packed(*args, bound_diag=False))
+
+
+def _diag_bounded(N, seed):
+    """Identity-diagonal bounds (tandem-style: j - r <= -1 or >= 1) on
+    most lanes, nearer and wider bounds on others."""
+    diag_lo = np.full(N, -TB.DIAG_UNBOUNDED, np.int32)
+    diag_hi = np.full(N, TB.DIAG_UNBOUNDED, np.int32)
+    diag_hi[seed % 3 :: 3] = -1
+    diag_lo[(seed + 1) % 3 :: 3] = 1
+    diag_hi[(seed + 1) % 3 :: 6] = 40
+    diag_lo[::5] = -30
+    return diag_lo, diag_hi
 
 
 def test_extend_diag_bounds_equal_jax():
@@ -90,9 +188,26 @@ def test_extend_diag_bounds_equal_jax():
     np.testing.assert_array_equal(got, ref)
 
 
-def _resident_case(seed, W, N, R, K):
+@pytest.mark.parametrize("W,N,R,kind,seed", _EDGE_CASES[:2] + _EDGE_CASES[3:])
+def test_extend_diag_bounds_edges_equal_jax(W, N, R, kind, seed):
+    """The diagonal-bounded DP at the edge cases, both modes: B windows
+    that repeat A, so the identity diagonal would win where not bounded."""
+    a_win, b_win, a_len, b_len, num_k, lane_k, _ = _edge_host_lanes(
+        seed, W, N, R, kind)
+    b_win[:, W : W + R] = a_win
+    diag_lo, diag_hi = _diag_bounded(N, seed)
+    args = (a_win, b_win, a_len, b_len, num_k, lane_k, diag_lo, diag_hi, R, W)
+    ref = _jax_packed(*args, bound_diag=True)
+    assert (ref[0] > 0).any(), "scenario must produce alignments"
+    np.testing.assert_array_equal(_port_host_windows(*args), ref)
+    np.testing.assert_array_equal(_port_packed(*args), ref)
+
+
+def _resident_case(seed, W, N, R, K, kind=None):
     """A random store plus lanes with reversed A, reversed and/or
-    complemented B, clipped [c_lo, c_hi) and a few diagonal bounds."""
+    complemented B, clipped [c_lo, c_hi) and a few diagonal bounds;
+    with ``kind``, the edge cases' a_len, schedules (``_edge_nums``),
+    column ranges cut through the band and identity-diagonal bounds."""
     rng = np.random.default_rng(seed)
     BW = TB.bw_for(R, W)
     size = 4 * (R + BW) + 2 * TB.RESIDENT_PAD
@@ -115,16 +230,26 @@ def _resident_case(seed, W, N, R, K):
     meta[11] = TB.DIAG_UNBOUNDED
     meta[11, ::5] = 25
     num_k = np.array([R, int(1.04 * R), int(0.97 * R), R][:K], np.int32)
+    if kind is not None:
+        num_k = _edge_nums(kind, R, W)
+        meta[9] = np.arange(N) % len(num_k)
+        meta[2] = _edge_a_lens(seed, N, R)
+        meta[6, 3::4] = W + 20 + np.arange(3, N, 4) % 17
+        meta[7, 3::4] = meta[6, 3::4] + R // 2
+        meta[10], meta[11] = _diag_bounded(N, seed)
     return arena, meta, num_k, BW
 
 
-@pytest.mark.parametrize("seed", [3, 4])
-def test_extend_resident_lanes_equal_jax(seed):
-    W, N, R, K = 64, 16, 252, 3
-    arena, meta, num_k, BW = _resident_case(seed, W, N, R, K)
+@pytest.mark.parametrize("seed,W,N,R,kind", [
+    pytest.param(3, 64, 16, 252, None, id="3"),
+    pytest.param(4, 64, 16, 252, None, id="4"),
+    *[pytest.param(seed, W, N, R, kind, id=f"edges-W{W}-N{N}-R{R}-{kind}")
+      for W, N, R, kind, seed in _EDGE_CASES[1:3] + _EDGE_CASES[4:]]])
+def test_extend_resident_lanes_equal_jax(seed, W, N, R, kind):
+    arena, meta, num_k, BW = _resident_case(seed, W, N, R, 3, kind)
     ref = np.asarray(B._extend_scan_v3_resident(
         jnp.asarray(arena), jnp.asarray(meta), jnp.asarray(num_k), R=R, N=N,
-        K=K, W=W, BW=BW, bound_diag=True))
+        K=len(num_k), W=W, BW=BW, bound_diag=True))
     got = TB.extend(torch.from_numpy(arena), torch.from_numpy(meta), num_k,
                     R=R, W=W).numpy()
     np.testing.assert_array_equal(got, ref)

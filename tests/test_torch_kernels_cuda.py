@@ -5,7 +5,10 @@ Each kernel runs in its unpacked mode and in its 2-bit packed mode
 end modes) too.  Skipped where there is no GPU (a CUDA kernel has no CPU or interpret
 mode); on a machine with one, run ``python -m pytest --noconftest -m cuda
 tests/test_torch_kernels_cuda.py`` (``tests/conftest.py`` imports JAX).  Inputs are seeded numpy arrays at
-small shapes; every output must be bit-equal (integer DPs).
+small shapes; every output must be bit-equal (integer DPs).  K1 and K1p
+also run at their edges: band widths 32 to 512, flat and steepest
+schedules, a_len on chunk and trace boundaries, B column ranges cut
+through the band, identity-diagonal bounds, and ragged lane blocks.
 """
 
 import numpy as np
@@ -52,9 +55,56 @@ def _resident(seed, W, N, R, K):
     return store, meta, num_k
 
 
-def test_extend_kernel_equals_plain(cuda):
-    R, W, N = 504, 256, 64
-    store, meta, num_k = _resident(1, W, N, R, 4)
+#: a_len edges: no row, one row, the kernel's 32-row staging chunks,
+#: JAX's 42-row chunks, the 126-row trace samples, then R
+_EDGE_A_LENS = (0, 1, 31, 32, 33, 41, 42, 43, 125, 126, 127)
+#: (W, N, R, schedules): W = 32 and 96 (padded bands), 256 (the
+#: aligner's), 512 (2R schedules fit at R = 252); one lane, a few, and
+#: 129 (a ragged last block of four lanes)
+_EDGES = [(W, N, 252, kind) for W in (32, 96, 256, 512)
+          for N, kind in ((1, "max"), (5, "zero"), (129, "mixed"))]
+
+
+def _edge_nums(kind, R, W):
+    """Flat schedules (s = 0 every row), the steepest the wrapper takes
+    (2R, s = 2 every row, where the B window allows it) or both among
+    ordinary slopes."""
+    top = min(2 * R, K1.bw_for(R, W) - 2 * W - 2 * K1._CHUNK + W // 2 + 1)
+    return np.array({"zero": [0], "max": [top],
+                     "mixed": [R, 0, top, int(0.95 * R)]}[kind], np.int32)
+
+
+def _edge_bounds(meta_lo, meta_hi, seed):
+    """Identity-diagonal bounds (j - r <= -1 or >= 1) and wider ones."""
+    meta_hi[seed % 3 :: 3] = -1
+    meta_lo[(seed + 1) % 3 :: 3] = 1
+    meta_hi[(seed + 1) % 3 :: 6] = 40
+    meta_lo[::5] = -30
+
+
+def _edge_resident(seed, W, N, R, kind):
+    """``_resident`` lanes at the kernel's edges: a_len on chunk and trace
+    boundaries, the schedules of ``kind``, B column ranges cut through
+    the band (lanes 3 mod 4), identity-diagonal bounds."""
+    store, meta, _ = _resident(seed, W, N, R, 1)
+    num_k = _edge_nums(kind, R, W)
+    meta[9] = np.arange(N) % len(num_k)
+    lens = np.array([*_EDGE_A_LENS, R], np.int32)
+    meta[2] = lens[(np.arange(N) + seed) % len(lens)]
+    meta[6, 3::4] = W + 20 + np.arange(3, N, 4) % 17
+    meta[7, 3::4] = meta[6, 3::4] + R // 2
+    _edge_bounds(meta[10], meta[11], seed)
+    return store, meta, num_k
+
+
+@pytest.mark.parametrize("W,N,R,kind", [
+    pytest.param(256, 64, 504, None, id="resident"),
+    *[pytest.param(*e, id="edges-W{}-N{}-R{}-{}".format(*e)) for e in _EDGES]])
+def test_extend_kernel_equals_plain(cuda, W, N, R, kind):
+    if kind is None:
+        store, meta, num_k = _resident(1, W, N, R, 4)
+    else:
+        store, meta, num_k = _edge_resident(2, W, N, R, kind)
     s, m = torch.from_numpy(store).to(cuda), torch.from_numpy(meta).to(cuda)
     n0 = K1.launches
     got = K1.extend(s, m, num_k, R=R, W=W)
@@ -114,8 +164,10 @@ def test_nw_dist_kernel_equals_plain(cuda):
     assert torch.equal(got, K3.nw_dist_pairs_reference(b, m, TW, TWp, RW, NB))
 
 
-def test_extend_packed_kernel_equals_plain(cuda):
-    R, W, N = 504, 256, 64
+@pytest.mark.parametrize("W,N,R,kind", [
+    pytest.param(256, 64, 504, None, id="packed"),
+    *[pytest.param(*e, id="edges-W{}-N{}-R{}-{}".format(*e)) for e in _EDGES]])
+def test_extend_packed_kernel_equals_plain(cuda, W, N, R, kind):
     rng = np.random.default_rng(4)
     BW = K1.bw_for(R, W)
     a = rng.integers(0, 4, (N, R)).astype(np.uint8)
@@ -126,6 +178,16 @@ def test_extend_packed_kernel_equals_plain(cuda):
                       np.full(N, -K1.DIAG_UNBOUNDED), np.full(N, K1.DIAG_UNBOUNDED)])
     meta5[4, ::5] = 25
     num_k = np.array([R, int(1.04 * R), int(0.97 * R)], np.int32)
+    if kind is not None:  # the edges of _edge_resident on host windows
+        num_k = _edge_nums(kind, R, W)
+        meta5[1] = np.arange(N) % len(num_k)
+        lens = np.array([*_EDGE_A_LENS, R])
+        meta5[2] = lens[(np.arange(N) + 3) % len(lens)]
+        for n in range(3, N, 4):  # a B column range cut through the band
+            c_lo = W + 20 + n % 17
+            b[n, :c_lo] = 0
+            b[n, c_lo + R // 2 :] = 0
+        _edge_bounds(meta5[3], meta5[4], 3)
     c = torch.from_numpy(np.concatenate([pack2bit(a), pack2bit(b)], 1)).to(cuda)
     m = torch.from_numpy(meta5.astype(np.int32)).to(cuda)
     n0 = K1.packed_launches
