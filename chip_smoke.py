@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``dentist_tpu_torch``) once on one GPU.
 
-    python3 chip_smoke.py [--baseline-extend PATH]
+    python3 chip_smoke.py [--baseline-extend PATH] [--baseline-nw-round PATH]
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -21,7 +21,15 @@ Phases (any failure exits non-zero and prints no result line):
    bucket pair it launched K1 at and at (1512, 128) and (13608, 1024),
    with their ratio to the bound; ``--baseline-extend PATH`` builds
    another version's ``csrc/extend.cu`` and times its K1 and K1p beside
-   this one's at those two pairs, on the same inputs, in turns.
+   this one's at those two pairs, on the same inputs, in turns.  K2, K2p
+   and K2r also run after phase 5, at every (T, RL, N) bucket it
+   launched K2p or K2r at, with as many live lanes as those launches held
+   on average, with their ratio to the bound; K2p at the largest of them
+   runs with S = 0 (the forward scan alone) beside the full S (scan and
+   traceback); ``--baseline-nw-round PATH`` builds another version's
+   ``csrc/nw_round.cu`` and times its K2p there (both S) and its K2r at
+   the largest K2r bucket beside this one's, in turns, after checking
+   equal outputs.
 4. Main path, small: the 60 kb / 3-gap scenario of ``tests/test_e2e.py``
    through ``python -m dentist_tpu_torch pipeline``; the output FASTA,
    AGP and BED must hash to the JAX package's outputs.
@@ -30,7 +38,9 @@ Phases (any failure exits non-zero and prints no result line):
    (store-resident windows, sparse result blocks, 2-bit store uploads);
    every kernel of that path (K1, K2p, K2r, K3p, K4, K4w, K5) must have
    launched (K1's (R, N, live lanes) are recorded per launch through a
-   wrapper around ``banded.extend``), the gaps closed (byte-exact against
+   wrapper around ``banded.extend``, K2p's and K2r's (T, RL, N, live
+   lanes) through wrappers around the names ``ops/consensus.py`` calls
+   them by), the gaps closed (byte-exact against
    the simulated truth) must be at least as many as the JAX package
    closes, and the FASTA, AGP and BED must hash to the JAX package's
    outputs.
@@ -257,6 +267,25 @@ def reset_launch_counts() -> None:
     from dentist_tpu_torch.dryrun import reset_launch_counts as reset
 
     reset()
+
+
+def ptxas_lines(text: str) -> list:
+    """ptxas's report per kernel from ``-Xptxas -v`` output: the kernel
+    and its template arguments, registers, stack and spills."""
+    import re
+
+    out, name = [], None
+    for line in text.splitlines():
+        m = re.search(r"Function properties for \S*?[a-z](?:\d+)([a-z_]+_kernel)(?:I(\w*?)EE)?v", line)
+        if m:
+            args = re.findall(r"L[ib](\d+)E", m.group(2) or "")
+            name = m.group(1) + (f"<{', '.join(args)}>" if args else "")
+        elif "spill" in line and name:
+            out.append(f"{name}: {line.strip()}")
+        elif "Used" in line and name:
+            out[-1] += "; " + line.split(":", 1)[1].strip()
+            name = None
+    return out
 
 
 def max_abs_err(got, ref) -> int:
@@ -534,7 +563,7 @@ def phase_kernels():
     # K2 and K2p, a windowed round and a full round; K4w and K4 pack
     # K2p's fields (K4 also at the 4 kb template bucket).  The main path
     # runs K2p on full rounds, so the full round is K2p's last case
-    k2p, k4s, k4d, k4ws, k4wd = {}, {}, {}, {}, {}
+    k4s, k4d, k4ws, k4wd = {}, {}, {}, {}
     for T, RL, N, lead_free, window in ((192, 384, 2048, 16, True),
                                         (512, 1024, 32, -1, False),
                                         (4096, 8192, 512, -1, False)):
@@ -556,7 +585,6 @@ def phase_kernels():
                           chars, meta, RL=RL, **kw), 3, work)
             if max_abs_err(st["out"], unpacked):
                 fail(f"K2p != K2 on the same lanes at T={T} N={N}")
-            k2p = merge(k2p, st)
         cen = torch.empty((N, T + 1), dtype=torch.int32, device="cuda")
         fields = nw_round.nw_round_packed(chars, meta, RL=RL, centers_out=cen,
                                           **kw)
@@ -593,23 +621,12 @@ def phase_kernels():
             else:
                 k4d = merge(k4d, st)
 
-    # K2r and the resident K4w: windowed lanes in the device store
+    # the resident K4w on K2r's fields: windowed lanes in the device store
+    # (K2r itself is held after phase 5, at the main path's buckets)
     N, T, RL = 2048, 192, 384
     meta = resident_case(store, rng, N)
     kw = dict(T=T, RL=RL, W=128, S=T + RL, NWIN=2, lead_free=16)
     cen = torch.empty((N, T + 1), dtype=torch.int32, device="cuda")
-
-    def k2r_plain():
-        tpl, reads, tl, sl, c, _ = nw_round.window_resident_inputs(
-            store.array, meta, T, RL)
-        return nw_round.nw_round_reference(tpl, tl, reads, sl, c, T, 128,
-                                           T + RL, 2, 16)
-
-    win_bytes = int(meta[0].sum() + meta[1].sum())
-    k2r = hold(f"K2r nw_round_resident N={N}",
-               lambda: nw_round.nw_round_resident(store.array, meta, **kw),
-               k2r_plain, 3,
-               k2_work(meta[0], T, 128, 2, nbytes(meta) + win_bytes))
     fields = nw_round.nw_round_resident(store.array, meta, centers_out=cen, **kw)
     for sparse in (True, False):
         st = hold(f"K4w window_pack resident sparse={sparse} N={N}",
@@ -641,10 +658,6 @@ def phase_kernels():
     k5 = hold(f"K5 store_write n={n}", k5_kernel, k5_plain, 10,
               bound(n // 4 + n, OPS_PER_CELL["K5"] * n))
 
-    rows.append(("K2p nw_round_packed", "dentist_tpu_torch/csrc/nw_round.cu",
-                 "dentist_tpu/ops/consensus.py:491", "main", "K2p", k2p))
-    rows.append(("K2r nw_round_resident", "dentist_tpu_torch/csrc/nw_round.cu",
-                 "dentist_tpu/ops/consensus.py:945", "main", "K2r", k2r))
     rows.append(("K4 round_pack sparse", "dentist_tpu_torch/csrc/round_pack.cu",
                  "dentist_tpu/ops/consensus.py:397", "main", "K4", k4s))
     rows.append(("K4 round_pack dense", "dentist_tpu_torch/csrc/round_pack.cu",
@@ -735,10 +748,18 @@ def phase_kernels():
 K1_LEGACY = ((1512, 128), (13608, 1024))
 
 
-def build_baseline(path: str):
-    """The extension kernel of ``path`` (a ``csrc/extend.cu`` of another
-    version, with its ``pack2.cuh`` beside it), built with the package's
-    flags into a temporary directory; its two entry points by mode."""
+#: the C entry points a baseline source exports: (pointers, ints) before
+#: the stream argument
+EXTEND_ENTRIES = {"dentist_extend": (4, 5), "dentist_extend_packed": (4, 4)}
+NW_ROUND_ENTRIES = {"dentist_nw_round": (13, 8),
+                    "dentist_nw_round_packed": (11, 8),
+                    "dentist_nw_round_resident": (11, 9)}
+
+
+def build_baseline(path: str, entries: dict):
+    """The kernels of ``path`` (a ``csrc/*.cu`` of another version, with
+    its ``pack2.cuh`` beside it), built with the package's flags into a
+    temporary directory; its ``entries`` by name."""
     import ctypes
     import shutil
 
@@ -751,16 +772,16 @@ def build_baseline(path: str):
                                path], capture_output=True, text=True)
         if proc.returncode:
             fail(f"baseline {path} did not build:\n{proc.stdout}{proc.stderr}")
-        for line in (proc.stdout + proc.stderr).splitlines():
-            if "Used" in line or "spill" in line:
-                log(f"  baseline {line.strip()}")
+        for line in ptxas_lines(proc.stdout + proc.stderr):
+            log(f"  baseline {line}")
         lib = ctypes.CDLL(so)
     finally:
         shutil.rmtree(tmp)
     fns = {}
-    for name, n_int in (("dentist_extend", 5), ("dentist_extend_packed", 4)):
+    for name, (n_ptr, n_int) in entries.items():
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fns[name] = fn
     return fns
@@ -841,6 +862,154 @@ def compare(what: str, R: int, N: int, kernel, old, out, st: dict) -> None:
         f"{(ms[0] + ms[3]) / (ms[1] + ms[2]):.2f}x faster")
 
 
+def k2_case(rng, T: int, RL: int, N: int, live: int, window: bool):
+    """K2 lanes at one of the main path's launch shapes: ``live`` lanes of
+    :func:`nw_lanes`, then padding lanes (a one-character template, no
+    read) as the dispatches fill their lane buckets."""
+    import torch
+
+    tpl, t_lens, reads, r_lens, cen = nw_lanes(rng, T, RL, live, window)
+    pad = N - live
+    z = lambda *shape, dt=torch.int32: torch.zeros(shape, dtype=dt, device="cuda")
+    return [torch.cat([tpl, z(T, pad, dt=torch.uint8)], 1).contiguous(),
+            torch.cat([t_lens, z(pad) + 1]), torch.cat([reads, z(pad, RL, dt=torch.uint8)]),
+            torch.cat([r_lens, z(pad)]), torch.cat([cen, z(T + 1, pad)], 1).contiguous()]
+
+
+def k2_baseline_run(fn, src_args, T: int, RL: int, N: int, kw: dict, extra=()):
+    """A call of another version's K2p or K2r entry point ``fn`` on the
+    same inputs, with its own scratch (a W-byte move per cell) and
+    outputs; returns (call, outputs)."""
+    import torch
+
+    W, NWIN = kw["W"], kw["NWIN"]
+    e = lambda *shape, dt=torch.int32: torch.empty(shape, dtype=dt, device="cuda")
+    cen, moves = e(N, T + 1), e(N, T, W, dt=torch.uint8)
+    outs = (e(N, T, dt=torch.int8), e(N, T + 1, 4, dt=torch.int8), e(N, T + 1),
+            e(N, 2), e(N), e(N, NWIN), e(N, dt=torch.bool))
+    ptrs = [a.data_ptr() for a in (*src_args, cen, moves, *outs)]
+
+    def call():
+        fn(*ptrs, *extra, N, T, RL, W, kw["S"], NWIN, kw["lead_free"], 126,
+           torch.cuda.current_stream().cuda_stream)
+        return outs
+    return call, outs
+
+
+def turns(what: str, kernel, old) -> list:
+    """``old`` and ``kernel`` timed in turns (old, kernel, kernel, old)."""
+    ms = [cuda_ms(old, 3), cuda_ms(kernel, 3), cuda_ms(kernel, 3), cuda_ms(old, 3)]
+    log(f"  {what} baseline, kernel, kernel, baseline ms: "
+        f"{', '.join(f'{m:.3f}' for m in ms)}; kernel "
+        f"{(ms[0] + ms[3]) / (ms[1] + ms[2]):.2f}x faster")
+    return ms
+
+
+def phase_k2(k2_buckets: dict, baseline) -> list:
+    """Phase 3 for K2, K2p and K2r, after phase 5: each against its plain
+    version at every (T, RL, N) bucket of the main path's launches, with
+    as many live lanes as the launches held on average, with its time,
+    bound and their ratio.  K2p at the largest of them runs again with
+    S = 0 (the forward scan alone) beside the full S (scan and
+    traceback).  With ``baseline`` (:func:`build_baseline`), the other
+    version's K2p there and its K2r at the largest K2r bucket are checked
+    equal and timed beside these, in turns."""
+    import torch
+
+    from dentist_tpu_torch.ops import banded, nw_round
+    from dentist_tpu_torch.ops.round_pack import TB_nwin
+
+    rng = np.random.default_rng(2025)
+    store = banded.device_store()
+    k2, k2p, k2r = {}, {}, {}
+    largest = last_r = None
+    ratio = lambda st: f"{st['ms'] / st['bound_ms']:.1f}x the bound"
+    for (mode, T, RL, N), (count, live) in sorted(
+            k2_buckets.items(), key=lambda kv: (kv[0][0], kv[0][1] * kv[0][3])):
+        live = max(1, round(live / count))
+        NWIN = max(TB_nwin(T), 1)
+        if mode == "K2p":
+            window = T == 192
+            kw = dict(T=T, W=128, S=T + RL, NWIN=NWIN,
+                      lead_free=16 if window else -1)
+            args = k2_case(rng, T, RL, N, live, window)
+            chars, meta = k2p_pack(args, window)
+            st = hold(f"K2 nw_round T={T} RL={RL} N={N} live={live}",
+                      lambda: nw_round.nw_round(*args, **kw),
+                      lambda: nw_round.nw_round_reference(*args, **kw), 3,
+                      k2_work(args[1], T, 128, NWIN, nbytes(*args)))
+            log(f"  {int(st['out'][6].sum())}/{N} lanes covered; {ratio(st)}")
+            k2, unpacked = merge(k2, st), st["out"]
+            st = hold(f"K2p nw_round_packed T={T} RL={RL} N={N} live={live}",
+                      lambda: nw_round.nw_round_packed(chars, meta, RL=RL, **kw),
+                      lambda: nw_round.nw_round_packed_reference(
+                          chars, meta, RL=RL, **kw), 3,
+                      k2_work(args[1], T, 128, NWIN, nbytes(chars, meta)))
+            log(f"  {ratio(st)}")
+            if max_abs_err(st["out"], unpacked):
+                fail(f"K2p != K2 on the same lanes at T={T} N={N}")
+            k2p = merge(k2p, st)
+            if largest is None or T * live > largest[0] * largest[3]:
+                largest = (T, RL, N, live, chars, meta, kw, st)
+        else:
+            meta = resident_case(store, rng, N)
+            meta[:, live:] = torch.tensor([1, 0, 0, 0, 0], dtype=torch.int32,
+                                          device="cuda")[:, None]
+            kw = dict(T=T, RL=RL, W=128, S=T + RL, NWIN=NWIN, lead_free=16)
+
+            def k2r_plain(meta=meta, T=T, RL=RL, NWIN=NWIN):
+                tpl, reads, tl, sl, c, _ = nw_round.window_resident_inputs(
+                    store.array, meta, T, RL)
+                return nw_round.nw_round_reference(tpl, tl, reads, sl, c, T,
+                                                   128, T + RL, NWIN, 16)
+
+            win_bytes = int(meta[0].sum() + meta[1].sum())
+            st = hold(f"K2r nw_round_resident T={T} RL={RL} N={N} live={live}",
+                      lambda: nw_round.nw_round_resident(store.array, meta, **kw),
+                      k2r_plain, 3,
+                      k2_work(meta[0], T, 128, NWIN, nbytes(meta) + win_bytes))
+            log(f"  {ratio(st)}")
+            k2r = merge(k2r, st)
+            last_r = (T, RL, N, meta, kw, st)
+
+    # the forward scan (S = 0) against scan and traceback, at the largest
+    # K2p bucket (by live rows), in this version and the baseline's
+    T, RL, N, live, chars, meta, kw, st = largest
+    kernel = lambda S: (lambda: nw_round.nw_round_packed(chars, meta, RL=RL,
+                                                         **dict(kw, S=S)))
+    if baseline:
+        old_full, outs = k2_baseline_run(baseline["dentist_nw_round_packed"],
+                                         (chars, meta), T, RL, N, kw)
+        old_full()
+        torch.cuda.synchronize()
+        if max_abs_err(outs, st["out"]):
+            fail(f"K2p baseline != kernel at T={T} N={N}")
+        old_s0, _ = k2_baseline_run(baseline["dentist_nw_round_packed"],
+                                    (chars, meta), T, RL, N, dict(kw, S=0))
+        for S, old in ((T + RL, old_full), (0, old_s0)):
+            turns(f"K2p T={T} N={N} live={live} S={S}:", kernel(S), old)
+        T, RL, N, meta, kw, st = last_r
+        old, outs = k2_baseline_run(baseline["dentist_nw_round_resident"],
+                                    (store.array, meta), T, RL, N, kw,
+                                    (store.array.numel(),))
+        old()
+        torch.cuda.synchronize()
+        if max_abs_err(outs, st["out"]):
+            fail(f"K2r baseline != kernel at N={N}")
+        turns(f"K2r T={T} N={N}:",
+              lambda: nw_round.nw_round_resident(store.array, meta, **kw), old)
+    else:
+        ms = [cuda_ms(kernel(S), 3) for S in (T + RL, 0)]
+        log(f"  K2p T={T} N={N} live={live}: S={T + RL} {ms[0]:.3f} ms, S=0 "
+            f"{ms[1]:.3f} ms (traceback {ms[0] - ms[1]:.3f} ms); no "
+            f"--baseline-nw-round given: no other K2 version timed")
+    src = "dentist_tpu_torch/csrc/nw_round.cu"
+    return [("K2p nw_round_packed", src, "dentist_tpu/ops/consensus.py:491",
+             "main", "K2p", k2p),
+            ("K2r nw_round_resident", src, "dentist_tpu/ops/consensus.py:945",
+             "main", "K2r", k2r)]
+
+
 # ----------------------------------------------------------------------
 # phases 4 and 5: the main path
 
@@ -887,7 +1056,7 @@ def run_phase_a(d: str, asm: str, reads: str, tag: str):
 def phase_a(tmp: str) -> dict:
     import torch
 
-    from dentist_tpu_torch.ops import banded
+    from dentist_tpu_torch.ops import banded, consensus
     from dentist_tpu_torch.pipeline import STAGE_SECONDS, reset_stage_seconds
     from dentist_tpu_torch.scenarios import (closed_exactly_in,
                                              phase_a_scenario, write_scenario)
@@ -904,12 +1073,27 @@ def phase_a(tmp: str) -> dict:
         shapes.append((R, meta12.shape[1], meta12[2].clone()))
         return extend(store, meta12, num_k, R, W)
 
+    # each K2p and K2r launch's (T, RL, N, live lanes: a template and a
+    # read), through wrappers around the names consensus calls them by
+    k2_shapes = []
+
+    def k2_recorder(mode, fn):
+        def recorded_k2(src, meta, **kw):
+            live = int(((meta[0] > 0) & (meta[1] > 0)).sum())
+            k2_shapes.append((mode, kw["T"], kw["RL"], meta.shape[1], live))
+            return fn(src, meta, **kw)
+        return recorded_k2
+
+    k2_fns = (consensus.nw_round_packed, consensus.nw_round_resident)
     banded.extend = recorded
+    consensus.nw_round_packed = k2_recorder("K2p", k2_fns[0])
+    consensus.nw_round_resident = k2_recorder("K2r", k2_fns[1])
     reset_launch_counts()
     try:
         result, out, wall = run_phase_a(d, asm, reads, "")
     finally:
         banded.extend = extend
+        consensus.nw_round_packed, consensus.nw_round_resident = k2_fns
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     n_pileups = None
@@ -934,6 +1118,14 @@ def phase_a(tmp: str) -> dict:
     log("  K1 launches by (R, N): " + "; ".join(
         f"({R}, {N}) x{c}, {live} live lanes, {rows} rows"
         for (R, N), (c, live, rows) in sorted(buckets.items())))
+    k2_buckets: dict = {}
+    for mode, T, RL, N, live in k2_shapes:
+        row = k2_buckets.setdefault((mode, T, RL, N), [0, 0])
+        row[0] += 1
+        row[1] += live
+    log("  K2p and K2r launches by (T, RL, N): " + "; ".join(
+        f"{mode} ({T}, {RL}, {N}) x{c}, {live} live lanes"
+        for (mode, T, RL, N), (c, live) in sorted(k2_buckets.items())))
     for name, want in PHASE_A_SHA256.items():
         got = sha256(os.path.join(d, name))
         if got != want:
@@ -949,7 +1141,7 @@ def phase_a(tmp: str) -> dict:
         fail(f"closed {result.n_closed_gaps} gaps, JAX closes {PHASE_A_JAX_CLOSED}")
     if exact < PHASE_A_JAX_EXACT:
         fail(f"{exact} gaps closed byte-exact, JAX closes {PHASE_A_JAX_EXACT}")
-    return launches, sc, buckets
+    return launches, sc, buckets, k2_buckets
 
 
 def consensus_sections(sections: dict) -> dict:
@@ -1292,6 +1484,10 @@ def main() -> None:
     ap.add_argument("--baseline-extend", metavar="PATH",
                     help="another version's csrc/extend.cu (pack2.cuh beside "
                          "it): phase 3 times its K1 and K1p beside this one's")
+    ap.add_argument("--baseline-nw-round", metavar="PATH",
+                    help="another version's csrc/nw_round.cu (pack2.cuh "
+                         "beside it): phase 3 times its K2p and K2r beside "
+                         "this one's")
     args = ap.parse_args()
     try:
         import torch
@@ -1326,21 +1522,24 @@ def main() -> None:
     _build.library()
     log(f"built the kernels in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {_build.build_seconds:.1f} s)")
-    for line in _build.build_log.splitlines():  # ptxas: registers, spills
-        if "Used" in line or "spill" in line:
-            log(f"  {line.strip()}")
+    for line in ptxas_lines(_build.build_log):
+        log(f"  {line}")
 
     # 3. kernels against their plain versions (K1 and K1p after phase 5)
     rows, phase3 = phase_kernels()
-    baseline = build_baseline(args.baseline_extend) if args.baseline_extend else None
+    baseline = (build_baseline(args.baseline_extend, EXTEND_ENTRIES)
+                if args.baseline_extend else None)
+    baseline_k2 = (build_baseline(args.baseline_nw_round, NW_ROUND_ENTRIES)
+                   if args.baseline_nw_round else None)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         # 4. main path, small, against the JAX package's hashes
         phase_e2e(tmp)
         # 5. main path at real size
-        launches, sc, buckets = phase_a(tmp)
-        # 3, K1 and K1p: at the bucket pairs phase 5 launched
-        rows = phase_k1(buckets, baseline) + rows
+        launches, sc, buckets, k2_buckets = phase_a(tmp)
+        # 3, K1, K1p, K2, K2p and K2r: at the bucket pairs phase 5 launched
+        rows = phase_k1(buckets, baseline) + phase_k2(k2_buckets,
+                                                      baseline_k2) + rows
         # 6. where the time goes in later calls
         phase_profile(tmp, PROFILE_CALLS)
         # 7. host-window path on the card

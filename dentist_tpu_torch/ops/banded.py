@@ -269,7 +269,7 @@ def host_window_meta(a_len, b_len, lane_k, diag_lo, diag_hi, N: int, R: int,
 
 def _check_shape(nk, R, W):
     """The row and schedule checks of both modes; returns BW."""
-    if R % _CHUNK or R % _TRACE or W % 32 or not 32 <= W <= 1024:
+    if R % _CHUNK or R % _TRACE or not 1 <= W <= 1024:
         raise KernelError(f"unsupported shape R={R}, W={W}")
     BW = bw_for(R, W)
     # every band schedule must stay inside the B window (the TPU kernel's

@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from ..device import get_device
+from ..errors import KernelError
 from ..models.alignments import TRACE_SPACING
 from ..parallel.dp import dispatch_workers, gather_lanes, local_lanes, pad_lanes
 from ..utils.prof import prof, prof_add
@@ -248,6 +249,8 @@ def _run_round(jobs, W: int, group=None) -> list[_RoundOut]:
     take the full banded scan (:func:`_run_round_full`).
     """
     jobs = _as_jobs(jobs)
+    if os.environ.get("DENTIST_TPU_NO_WINDOWED"):
+        return _run_round_full(jobs, W, group=group)
     win_jobs: list[int] = []
     full_jobs: list[int] = []
     for ji, job in enumerate(jobs):
@@ -689,6 +692,8 @@ def _dispatch_windowed_lanes(lane_tpl, lane_tlen, lane_seg, lane_seglen,
     jp_all = np.full((total, _ADV + 1), -1, np.int64)
     if total == 0:
         return sym_all, ins_all, jp_all
+    if W > 128:  # the windowed blocks' byte-packed jpath offsets
+        raise KernelError(f"windowed rounds take W <= 128, not {W}")
     tpl = np.concatenate(lane_tpl)
     tlen = np.concatenate(lane_tlen).astype(np.int32)
     slen = np.concatenate(lane_seglen).astype(np.int32)

@@ -16,7 +16,9 @@ path back and reduces it into dense per-lane columns:
 
 :func:`nw_round` launches ``csrc/nw_round.cu`` for CUDA tensors and runs
 :func:`nw_round_reference`, the plain PyTorch version, for CPU tensors.
-Band centers must step by 0..2 per row, as the host builds them.
+Every band width 1 <= W <= 1024 runs (the card kernel keeps the band
+in registers; JAX's windowed rounds take W <= 128, which
+``ops/consensus.py`` checks).
 
 :func:`nw_round_packed` (K2p, port of ``_nw_round_packed`` and of the
 2-bit input of ``_nw_window_round``) takes the lanes as one 2-bit packed
@@ -52,6 +54,14 @@ INF = 1 << 28
 _DIAG, _UP, _LEFT, _NONE = 0, 1, 2, 3
 _TRACE = 126
 
+
+def _move_row_bytes(W: int) -> int:
+    """Bytes of the kernel's move scratch per template row: 2 bits for
+    each of the 32 V band cells a warp holds (V = 4 up to W = 128, else
+    32)."""
+    return 32 if W <= 128 else 256
+
+
 #: launches of the K2 kernel on unpacked inputs (never of the plain version)
 launches = 0
 #: launches of the K2 kernel on 2-bit packed inputs (K2p)
@@ -74,7 +84,7 @@ def _check_args(tpl, t_lens, reads, read_lens, centers, T, W, S, NWIN):
     devs = {x.device for x in (tpl, t_lens, reads, read_lens, centers)}
     if len(devs) != 1:
         raise KernelError("nw_round inputs must share a device")
-    if W % 32 or not 32 <= W <= 1024 or T < 1 or RL < 1 or S < 0 or NWIN < 1:
+    if not 1 <= W <= 1024 or T < 1 or RL < 1 or S < 0 or NWIN < 1:
         raise KernelError(f"unsupported shape T={T} W={W} RL={RL}")
     return N, RL
 
@@ -100,7 +110,8 @@ def nw_round(tpl, t_lens, reads, read_lens, centers, T: int, W: int, S: int,
     reads = reads.contiguous()
     t_lens = t_lens.contiguous()
     read_lens = read_lens.contiguous()
-    moves = torch.empty((N, T, W), dtype=torch.uint8, device=dev)
+    moves = torch.empty((N, T, _move_row_bytes(W)), dtype=torch.uint8,
+                        device=dev)
     sym = torch.empty((N, T), dtype=torch.int8, device=dev)
     ins = torch.empty((N, T + 1, 4), dtype=torch.int8, device=dev)
     jpath = torch.empty((N, T + 1), dtype=torch.int32, device=dev)
@@ -136,7 +147,7 @@ def _check_packed(chars_pack, meta, T, RL, W, S, NWIN):
         raise KernelError(f"chars_pack must be (N, (2T + RL)/4) with T, RL "
                           f"multiples of 4; got {tuple(chars_pack.shape)}, "
                           f"T={T}, RL={RL}")
-    if W % 32 or not 32 <= W <= 1024 or T < 1 or RL < 1 or S < 0 or NWIN < 1:
+    if not 1 <= W <= 1024 or T < 1 or RL < 1 or S < 0 or NWIN < 1:
         raise KernelError(f"unsupported shape T={T} W={W} RL={RL}")
     return N
 
@@ -173,7 +184,8 @@ def nw_round_packed(chars_pack, meta, T: int, RL: int, W: int, S: int,
     meta = meta.contiguous()
     centers = (centers_out if centers_out is not None else
                torch.empty((N, T + 1), dtype=torch.int32, device=dev))
-    moves = torch.empty((N, T, W), dtype=torch.uint8, device=dev)
+    moves = torch.empty((N, T, _move_row_bytes(W)), dtype=torch.uint8,
+                        device=dev)
     sym = torch.empty((N, T), dtype=torch.int8, device=dev)
     ins = torch.empty((N, T + 1, 4), dtype=torch.int8, device=dev)
     jpath = torch.empty((N, T + 1), dtype=torch.int32, device=dev)
@@ -223,7 +235,7 @@ def _check_resident(store, meta, T, RL, W, S, NWIN):
         raise KernelError("store and meta must share a device")
     if not max(T, RL) <= store.numel() < 1 << 31:
         raise KernelError("store size out of range")
-    if W % 32 or not 32 <= W <= 1024 or T < 1 or RL < 1 or S < 0 or NWIN < 1:
+    if not 1 <= W <= 1024 or T < 1 or RL < 1 or S < 0 or NWIN < 1:
         raise KernelError(f"unsupported shape T={T} W={W} RL={RL}")
     return meta.shape[1]
 
@@ -258,7 +270,8 @@ def nw_round_resident(store, meta, T: int, RL: int, W: int, S: int,
         raise KernelError("nw_round_resident takes contiguous tensors")
     centers = (centers_out if centers_out is not None else
                torch.empty((N, T + 1), dtype=torch.int32, device=dev))
-    moves = torch.empty((N, T, W), dtype=torch.uint8, device=dev)
+    moves = torch.empty((N, T, _move_row_bytes(W)), dtype=torch.uint8,
+                        device=dev)
     sym = torch.empty((N, T), dtype=torch.int8, device=dev)
     ins = torch.empty((N, T + 1, 4), dtype=torch.int8, device=dev)
     jpath = torch.empty((N, T + 1), dtype=torch.int32, device=dev)
@@ -357,7 +370,6 @@ def _nw_round_lanes(tpl, t_lens, reads, read_lens, centers, T: int, W: int,
     d_init = (torch.zeros_like(j0) if lead_free < 0
               else torch.clamp(j0 - lead_free, min=0))
     D = torch.where((j0 >= 0) & (j0 <= rl[:, None]), d_init, INF)
-    inf = torch.full((N, 1), INF, dtype=i64, device=dev)
     # rows past every lane's template are all invalid: no moves, no ends
     moves = torch.full((T, N, W), _NONE, dtype=torch.uint8, device=dev)
     d_at = torch.full((T, N), INF, dtype=i64, device=dev)
@@ -365,9 +377,12 @@ def _nw_round_lanes(tpl, t_lens, reads, read_lens, centers, T: int, W: int,
     for i in range(1, T_eff + 1):
         off = offs[:, i : i + 1]
         s = off - offs[:, i - 1 : i]
-        padded = torch.cat([inf, D, inf, inf], dim=1)  # index q+1 ↔ D[q]
-        E = padded.gather(1, p + s + 1)
-        E1 = padded.gather(1, p + s)
+        # the band shifted by s (any s; the host's centers give 0..2):
+        # D[q] for 0 <= q < W, INF outside
+        E = torch.where((p + s >= 0) & (p + s < W),
+                        D.gather(1, (p + s).clamp(0, W - 1)), INF)
+        E1 = torch.where((p + s >= 1) & (p + s <= W),
+                         D.gather(1, (p + s - 1).clamp(0, W - 1)), INF)
         r_ch = rd.gather(1, torch.clamp(off - 1 + p, 0, RL - 1))
         j = off + p
         sub = (r_ch != tplT[:, i - 1 : i]).to(i64)

@@ -127,11 +127,18 @@ _EDGE_CASES = [(32, 1, 252, "max", 31), (96, 129, 252, "mixed", 32),
                (512, 129, 252, "max", 35)]
 
 
+#: band widths that are not multiples of 32 (16 is one of 16), on both
+#: sides of the consensus band's 128: the card kernel pads them with
+#: unreachable cells
+_NARROW_CASES = [(16, 8, 252, "mixed", 41), (48, 8, 252, "max", 42),
+                 (100, 8, 252, "mixed", 43), (130, 8, 252, "zero", 44)]
+
+
 @pytest.mark.parametrize("W,N,R,K,seed,kind", [
     pytest.param(64, 16, 252, 4, 11, None, id="64-16-252-4-11"),
     pytest.param(256, 8, 504, 3, 21, None, id="256-8-504-3-21"),
     *[pytest.param(W, N, R, 0, seed, kind, id=f"edges-W{W}-N{N}-R{R}-{kind}")
-      for W, N, R, kind, seed in _EDGE_CASES]])
+      for W, N, R, kind, seed in _EDGE_CASES + _NARROW_CASES]])
 def test_extend_random_lanes_equal_jax(W, N, R, K, seed, kind):
     if kind is None:
         lanes = _host_lanes(seed, W, N, R, K)
@@ -298,3 +305,20 @@ def test_device_store_from_seqstore():
     store = TB.DeviceStore.from_seqstore(seqs, torch.device("cpu"))
     off = store.offset_of(seqs.codes)
     np.testing.assert_array_equal(store.array[off : off + 5000].numpy(), codes)
+
+
+@pytest.mark.parametrize("W", [0, 1025])
+@pytest.mark.parametrize("packed", [False, True], ids=["K1", "K1p"])
+def test_extend_rejects_bad_widths(packed, W):
+    """K1 and K1p take 1 <= W <= 1024 (the card kernel keeps the band in
+    registers) and refuse the widths outside."""
+    R, N = 252, 2
+    num_k = np.array([R], np.int32)
+    with pytest.raises(KernelError, match="unsupported shape"):
+        if packed:
+            TB.extend_packed(torch.zeros((N, (R + 512) // 4), dtype=torch.uint8),
+                             torch.zeros((5, N), dtype=torch.int32), num_k,
+                             R=R, W=W)
+        else:
+            TB.extend(torch.zeros(4096, dtype=torch.uint8),
+                      torch.zeros((12, N), dtype=torch.int32), num_k, R=R, W=W)

@@ -6,7 +6,7 @@ end modes) too.  Skipped where there is no GPU (a CUDA kernel has no CPU or inte
 mode); on a machine with one, run ``python -m pytest --noconftest -m cuda
 tests/test_torch_kernels_cuda.py`` (``tests/conftest.py`` imports JAX).  Inputs are seeded numpy arrays at
 small shapes; every output must be bit-equal (integer DPs).  K1 and K1p
-also run at their edges: band widths 32 to 512, flat and steepest
+also run at their edges: band widths 16 to 512, flat and steepest
 schedules, a_len on chunk and trace boundaries, B column ranges cut
 through the band, identity-diagonal bounds, and ragged lane blocks.
 """
@@ -63,6 +63,10 @@ _EDGE_A_LENS = (0, 1, 31, 32, 33, 41, 42, 43, 125, 126, 127)
 #: 129 (a ragged last block of four lanes)
 _EDGES = [(W, N, 252, kind) for W in (32, 96, 256, 512)
           for N, kind in ((1, "max"), (5, "zero"), (129, "mixed"))]
+#: band widths that are not multiples of 32 (but 16), narrower and
+#: wider than a warp's 32 cells, and 300 (the 32-cell-a-thread mode)
+_EDGES += [(W, N, 252, kind) for W in (16, 48, 100, 130, 300)
+           for N, kind in ((5, "mixed"), (129, "max"))]
 
 
 def _edge_nums(kind, R, W):
@@ -347,3 +351,139 @@ def test_banded_nw_dist_kernel_equals_plain(cuda, W, global_ends):
     torch.cuda.synchronize()
     assert K3.banded_launches == n0 + 1
     assert torch.equal(got, K3.banded_nw_dist_reference(*args, T, W, global_ends))
+
+
+#: K2's edges: band widths from 16 to 1024 (V = 4 cells a thread up to
+#: 128, 32 above; none of 48, 100, 130 fills its warp), one lane, a few
+#: and 129 (a ragged block of four lanes), one template row, and row
+#: counts that are not multiples of the 32-row staging chunk
+_K2_WIDTHS = (16, 48, 100, 128, 130, 1024)
+_K2_SHAPES = ((1, 1), (5, 100), (129, 260))
+
+
+def _k2_edge_lanes(seed, T, RL, N, jumps):
+    """(tpl (T, N), t_lens, reads (N, RL), r_lens, centers (T+1, N)):
+    mutated copies, homopolymers, empty reads, unrelated reads longer
+    than the band can follow, reads of a template suffix, and an empty
+    template; centers on the slope-1 clamp, with ``jumps`` also steps
+    above 2 and below 0 on a third of the lanes."""
+    rng = np.random.default_rng(seed)
+    tpl = np.zeros((T, N), np.uint8)
+    reads = np.zeros((N, RL), np.uint8)
+    t_lens = np.zeros(N, np.int32)
+    r_lens = np.zeros(N, np.int32)
+    for n in range(N):
+        L = int(rng.integers(max(T // 2, 1), T + 1))
+        kind = n % 6
+        t = rng.integers(0, 4, L).astype(np.uint8)
+        if kind == 1:
+            t[:] = n % 4
+        keep = rng.random(L) > 0.08
+        r = t[keep]
+        ins = rng.random(len(r)) < 0.06
+        r = np.insert(r, np.flatnonzero(ins), rng.integers(0, 4, int(ins.sum())))
+        if kind == 2:
+            r = r[:0]
+        elif kind == 3:
+            r = rng.integers(0, 4, RL)
+        elif kind == 4:
+            r = r[len(r) // 3 :]
+        elif kind == 5 and n % 12 == 11:
+            L = 0
+        r = r[:RL].astype(np.uint8)
+        tpl[:L, n] = t[:L]
+        t_lens[n] = L
+        reads[n, : len(r)] = r
+        r_lens[n] = len(r)
+    rows = np.arange(T + 1, dtype=np.int64)[:, None]
+    cen = np.minimum(rows * r_lens[None, :] // np.maximum(t_lens, 1), r_lens)
+    steps = np.clip(np.diff(cen, axis=0), 0, 2)
+    if jumps:  # a few rows of each third lane move far, both ways
+        for n in range(1, N, 3):
+            at = rng.integers(0, T, 3)
+            steps[at, n] += rng.integers(-300, 300, 3)
+    cen = np.concatenate([cen[:1], cen[:1] + np.cumsum(steps, axis=0)])
+    return tpl, t_lens, reads, r_lens, cen.astype(np.int32)
+
+
+def _k2_equal(got, ref):
+    names = ("sym", "ins", "jpath", "spans", "diffs", "win", "covered")
+    for name, g, r in zip(names, got, ref):
+        assert g.dtype == r.dtype and torch.equal(g.cpu(), r.cpu()), name
+
+
+def _k2_steps(T, RL):
+    """S: the whole walk, no walk, and a walk cut short."""
+    return (T + RL, 0, 7)
+
+
+@pytest.mark.parametrize("N,T", _K2_SHAPES)
+@pytest.mark.parametrize("W", _K2_WIDTHS)
+def test_nw_round_kernel_at_edges(cuda, W, N, T):
+    RL = max(2 * T, 8)
+    lanes = _k2_edge_lanes(10 + W, T, RL, N, jumps=True)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in lanes]
+    for S in _k2_steps(T, RL):
+        kw = dict(T=T, W=W, S=S, NWIN=-(-T // 126), lead_free=5 if N == 5 else -1)
+        n0 = K2.launches
+        got = K2.nw_round(*args, **kw)
+        torch.cuda.synchronize()
+        assert K2.launches == n0 + 1
+        _k2_equal(got, K2.nw_round_reference(*args, **kw))
+
+
+@pytest.mark.parametrize("N,T", _K2_SHAPES)
+@pytest.mark.parametrize("W", _K2_WIDTHS)
+def test_nw_round_packed_kernel_at_edges(cuda, W, N, T):
+    T = -(-T // 4) * 4  # K2p's rows hold whole bytes
+    RL = max(2 * T, 8)
+    tpl, t_lens, reads, r_lens, centers = _k2_edge_lanes(20 + W, T, RL, N,
+                                                         jumps=False)
+    steps = np.diff(centers, axis=0).astype(np.uint8).T
+    steps[1::4, ::7] = 3  # the 2-bit steps reach 3: a shift the host never makes
+    chars = np.concatenate([pack2bit(np.ascontiguousarray(tpl.T)),
+                            pack2bit(reads), pack2bit(steps)], 1)
+    meta = np.stack([t_lens, r_lens, centers[0]]).astype(np.int32)
+    c, m = torch.from_numpy(chars).to(cuda), torch.from_numpy(meta).to(cuda)
+    for S in _k2_steps(T, RL):
+        kw = dict(T=T, RL=RL, W=W, S=S, NWIN=-(-T // 126), lead_free=-1)
+        cen = torch.empty((N, T + 1), dtype=torch.int32, device=cuda)
+        cen_ref = torch.empty_like(cen)
+        n0 = K2.packed_launches
+        got = K2.nw_round_packed(c, m, centers_out=cen, **kw)
+        torch.cuda.synchronize()
+        assert K2.packed_launches == n0 + 1
+        _k2_equal(got, K2.nw_round_packed_reference(c, m, centers_out=cen_ref,
+                                                    **kw))
+        assert torch.equal(cen, cen_ref)
+
+
+@pytest.mark.parametrize("N,T", _K2_SHAPES)
+@pytest.mark.parametrize("W", _K2_WIDTHS)
+def test_nw_round_resident_kernel_at_edges(cuda, W, N, T):
+    RL = max(2 * T, 8)
+    tpl, t_lens, reads, r_lens, _ = _k2_edge_lanes(30 + W, T, RL, N,
+                                                   jumps=False)
+    rng = np.random.default_rng(W)
+    size = 2 * N * (T + RL) + 64
+    store = rng.integers(0, 4, size).astype(np.uint8)
+    meta = np.zeros((5, N), np.int32)
+    for n in range(N):
+        t0, s0 = n * (T + RL), n * (T + RL) + T
+        store[t0 : t0 + T] = tpl[:, n]
+        store[s0 : s0 + RL] = reads[n]
+        meta[:, n] = (t_lens[n], r_lens[n], 0, t0, s0)
+    meta[3, -1] = size - 3  # starts the store clamps
+    meta[4, 0] = -5
+    s, m = torch.from_numpy(store).to(cuda), torch.from_numpy(meta).to(cuda)
+    for S in _k2_steps(T, RL):
+        kw = dict(T=T, RL=RL, W=W, S=S, NWIN=-(-T // 126), lead_free=16)
+        cen = torch.empty((N, T + 1), dtype=torch.int32, device=cuda)
+        cen_ref = torch.empty((N, T + 1), dtype=torch.int32)
+        n0 = K2.resident_launches
+        got = K2.nw_round_resident(s, m, centers_out=cen, **kw)
+        torch.cuda.synchronize()
+        assert K2.resident_launches == n0 + 1
+        _k2_equal(got, K2.nw_round_resident(s.cpu(), m.cpu(),
+                                            centers_out=cen_ref, **kw))
+        assert torch.equal(cen.cpu(), cen_ref)

@@ -114,9 +114,13 @@ def _compare(tpl, t_lens, reads, r_lens, centers, T, W, S, NWIN, lead_free):
     return [np.asarray(r) for r in ref]
 
 
-@pytest.mark.parametrize("seed", [1, 2])
-def test_full_round_equals_jax(seed):
-    T, N, W = 512, 12, 128
+@pytest.mark.parametrize("seed,T,W", [
+    pytest.param(1, 512, 128, id="1"), pytest.param(2, 512, 128, id="2"),
+    # band widths below the consensus band's 128, none a multiple of 32
+    # but 16: the card kernel pads them with unreachable cells
+    *[pytest.param(3, 256, W, id=f"T256-W{W}") for W in (16, 48, 100)]])
+def test_full_round_equals_jax(seed, T, W):
+    N = 12
     lanes = _full_lanes(seed, T, N)
     ref = _compare(*lanes, T=T, W=W, S=3 * T, NWIN=C.TB_nwin(T),
                    lead_free=-1)
@@ -147,3 +151,97 @@ def test_nw_round_rejects_bad_shapes():
         K2.nw_round(torch.from_numpy(tpl), torch.from_numpy(t_lens),
                     torch.from_numpy(reads), torch.from_numpy(r_lens),
                     torch.from_numpy(centers), T=64, W=128, S=192, NWIN=1)
+
+
+def _k2_modes(W, T=64, N=2):
+    """Calls of K2, K2p and K2r at band width W on small CPU lanes."""
+    tpl, t_lens, reads, r_lens, centers = _full_lanes(6, T, N)
+    RL = reads.shape[1]
+    args = [torch.from_numpy(np.ascontiguousarray(x)) for x in
+            (tpl.T, t_lens, reads, r_lens, centers)]
+    chars = torch.zeros((N, (2 * T + RL) // 4), dtype=torch.uint8)
+    meta3 = torch.stack([args[1], args[3], args[4][0]])
+    store = torch.zeros(4 * (T + RL), dtype=torch.uint8)
+    meta5 = torch.zeros((5, N), dtype=torch.int32)
+    kw = dict(W=W, S=T + RL, NWIN=1)
+    return {"K2": lambda: K2.nw_round(*args, T=T, **kw),
+            "K2p": lambda: K2.nw_round_packed(chars, meta3, T=T, RL=RL, **kw),
+            "K2r": lambda: K2.nw_round_resident(store, meta5, T=T, RL=RL, **kw)}
+
+
+@pytest.mark.parametrize("W", [0, 1025])
+@pytest.mark.parametrize("mode", ["K2", "K2p", "K2r"])
+def test_nw_round_rejects_bad_widths(mode, W):
+    """Every mode takes 1 <= W <= 1024 (the card kernel keeps the band
+    in registers) and refuses the widths outside."""
+    with pytest.raises(KernelError, match="unsupported shape"):
+        _k2_modes(W)[mode]()
+
+
+@pytest.mark.parametrize("mode", ["K2", "K2p", "K2r"])
+def test_nw_round_takes_every_width_up_to_1024(mode):
+    for W in (1, 33, 1024):
+        out = _k2_modes(W)[mode]()
+        assert len(out) == 7
+
+
+def _route_job(seed=7):
+    """One job of ``tests/test_sparse_transport.py``'s read sets (a
+    700-char truth, 9 reads at 13 % error), with the previous round's
+    path: the windowed route takes it unless told otherwise."""
+    rng = np.random.default_rng(seed)
+    truth = np.asarray(rng.integers(0, 4, 700), dtype=np.uint8)
+    reads = [_mutate(truth, rng, 0.13) for _ in range(9)]
+    template = reads[4]
+    [base] = C._run_round([C._ConsJob(template, reads)], 128)
+    return template, reads, base.jpath
+
+
+def test_no_windowed_switch_takes_the_full_round_as_jax(monkeypatch):
+    """``DENTIST_TPU_NO_WINDOWED`` sends a job that has a previous path
+    through the full banded round, in the port as in JAX: the seven
+    fields are equal and the port's windowed route is never entered."""
+    from dentist_tpu_torch.device import set_device
+    from dentist_tpu_torch.ops import consensus as PC
+
+    set_device("cpu")
+    template, reads, jpath = _route_job()
+    taken = []
+
+    def windowed(*args, **kwargs):
+        taken.append("windowed")
+        raise AssertionError("the windowed route was entered")
+
+    full = PC._run_round_full
+
+    def full_round(*args, **kwargs):
+        taken.append("full")
+        return full(*args, **kwargs)
+
+    monkeypatch.setattr(PC, "_run_round_windowed", windowed)
+    monkeypatch.setattr(PC, "_run_round_full", full_round)
+    job = PC._ConsJob(template, reads, jpath)
+    with pytest.raises(AssertionError, match="windowed route"):
+        PC._run_round([job], 128)  # without the switch: windowed
+    taken.clear()
+    monkeypatch.setenv("DENTIST_TPU_NO_WINDOWED", "1")
+    [want] = C._run_round([C._ConsJob(template, reads, jpath)], 128)
+    [got] = PC._run_round([job], 128)
+    assert taken == ["full"]
+    for name in ("sym", "ins", "jpath", "spans", "diffs", "win", "covered"):
+        np.testing.assert_array_equal(getattr(got, name), getattr(want, name),
+                                      err_msg=name)
+
+
+def test_windowed_round_refuses_bands_above_128():
+    """JAX asserts W <= 128 in its windowed rounds (byte-packed jpath
+    offsets); the port refuses W = 129 there and takes W = 128."""
+    from dentist_tpu_torch.device import set_device
+    from dentist_tpu_torch.ops import consensus as PC
+
+    set_device("cpu")
+    template, reads, jpath = _route_job()
+    with pytest.raises(AssertionError):
+        C._run_round([C._ConsJob(template, reads, jpath)], 129)
+    with pytest.raises(KernelError, match="W <= 128"):
+        PC._run_round([PC._ConsJob(template, reads, jpath)], 129)

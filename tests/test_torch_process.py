@@ -65,10 +65,11 @@ def events(monkeypatch):
 
 
 def test_refused_kernel_launch_stops_the_run(scenario, events):
-    """K2's wrapper refuses a band width that is not a multiple of 32;
-    the refusal reaches the caller instead of skipping the pile-up."""
+    """K2's wrapper refuses a band width above 1024 (the card kernel
+    keeps the band in registers); the refusal reaches the caller instead
+    of skipping the pile-up."""
     with pytest.raises(KernelError, match="unsupported shape"):
-        P.process_pile_ups(*scenario, P.ProcessConfig(band_width=100))
+        P.process_pile_ups(*scenario, P.ProcessConfig(band_width=1025))
     assert "pileUpSkipped" not in events()
     assert "consensusBatchFailed" not in events()
 
