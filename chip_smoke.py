@@ -2,13 +2,16 @@
 """Drive the PyTorch/CUDA port (``dentist_tpu_torch``) once on one GPU.
 
     python3 chip_smoke.py [--baseline-extend PATH] [--baseline-nw-round PATH]
+                          [--baseline-nw-dist PATH]
 
 Phases (any failure exits non-zero and prints no result line):
 
 1. Device: a CUDA GPU must be present; prints the card's
    ``nvidia-smi --query-gpu=name,power.limit`` line.
 2. Build: compiles the kernels from ``dentist_tpu_torch/csrc/``, one
-   ``nvcc`` per source, all started together.
+   ``nvcc`` per source, all started together; prints ptxas's registers,
+   stack and spills per kernel, and K3's word step in the compiled
+   SASS (``cuobjdump``) beside the operations its bound counts.
 3. Kernels: each kernel, in each of its modes (K1 and K1p, K2 and K2p
    full and windowed, K2r, K3 and K3p, K4 and K4w sparse and dense, K5,
    K3f and K3b free-shift and global), against its plain PyTorch version
@@ -17,7 +20,8 @@ Phases (any failure exits non-zero and prints no result line):
    every output must be equal.  Prints each mode's time beside its plain
    version's and its bound (the least time the card could take: bytes
    over HBM bandwidth or integer operations over the INT32 issue rate,
-   whichever is larger).  K1 and K1p run after phase 5, at every (R, N)
+   whichever is larger; K3 and K3p count 11 operations of their word
+   step per template row and 32 read columns).  K1 and K1p run after phase 5, at every (R, N)
    bucket pair it launched K1 at and at (1512, 128) and (13608, 1024),
    with their ratio to the bound; ``--baseline-extend PATH`` builds
    another version's ``csrc/extend.cu`` and times its K1 and K1p beside
@@ -29,7 +33,17 @@ Phases (any failure exits non-zero and prints no result line):
    traceback); ``--baseline-nw-round PATH`` builds another version's
    ``csrc/nw_round.cu`` and times its K2p there (both S) and its K2r at
    the largest K2r bucket beside this one's, in turns, after checking
-   equal outputs.
+   equal outputs.  K3 and K3p also run after phase 5, at every (V, NB)
+   bucket it launched K3p at, with as many live candidates and filled
+   read slots as those launches held on average and lengths drawn from
+   theirs (the case's word rows and cells within 15 % of theirs), with
+   their ratio to the bound and their DP cell rate; ``--baseline-nw-dist PATH`` builds
+   another version's ``csrc/nw_dist.cu``, checks its K3 and K3p equal to
+   this one's, and times its K3p beside this one's at the largest bucket
+   and at V = 256, NB = 8, in turns.  K3 is timed through its wrapper
+   as every kernel is, and besides by device time, its launches queued
+   behind a sleep kernel (a launch through the wrapper takes longer on
+   the host than the kernel on the card); the turns use device time.
 4. Main path, small: the 60 kb / 3-gap scenario of ``tests/test_e2e.py``
    through ``python -m dentist_tpu_torch pipeline``; the output FASTA,
    AGP and BED must hash to the JAX package's outputs.
@@ -40,7 +54,8 @@ Phases (any failure exits non-zero and prints no result line):
    launched (K1's (R, N, live lanes) are recorded per launch through a
    wrapper around ``banded.extend``, K2p's and K2r's (T, RL, N, live
    lanes) through wrappers around the names ``ops/consensus.py`` calls
-   them by), the gaps closed (byte-exact against
+   them by, and K3p's (V, NB, live candidates, filled slots) the
+   same way), the gaps closed (byte-exact against
    the simulated truth) must be at least as many as the JAX package
    closes, and the FASTA, AGP and BED must hash to the JAX package's
    outputs.
@@ -173,8 +188,23 @@ PROFILE_CALLS = 3
 HBM_BYTES_PER_S = 3.35e12
 #: integer operations per cell or column that the bounds count, per
 #: kernel: the recurrence's compares, adds, mins and selects (K1 adds the
-#: score key and its max), or a packing's per-column work
-OPS_PER_CELL = {"K1": 12, "K2": 10, "K3": 6, "K4": 8, "K5": 3}
+#: score key and its max), or a packing's per-column work; K3f and K3b
+#: (cell DPs)
+OPS_PER_CELL = {"K1": 12, "K2": 10, "K3f": 6, "K4": 8, "K5": 3}
+#: INT32 operations of one K3 word step, a template row on 32 read
+#: columns: the match mask (1), the add with its carry (1), the
+#: recurrence's 7 logic operations (three-input LOP3s: Xv, Eq & Pv, Xh,
+#: Ph, Mh, Pv, Mv) and the two shifts (2).  Loads, loop control and the
+#: kernel's own code spread are not the function's work and are not
+#: counted; phase 2 prints the compiled row loop's SASS instructions
+#: beside this count (:func:`k3_sass_step`)
+K3_OPS_PER_WORD32 = 11
+#: template rows one pass of K3's row loop advances: ``myers`` takes a
+#: window's codes 16 at a time and unrolls their rows
+K3_ROWS_PER_LOOP = 16
+#: how far a phase-3 K3 case's word rows and cells may stray from the
+#: per-launch average of the phase-5 bucket it stands for
+K3_CASE_MARGIN = 0.15
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -207,6 +237,38 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def cuda_ms_queued(fn, reps: int) -> float:
+    """Mean device milliseconds of ``fn`` (CUDA events) with its
+    launches queued behind a sleep kernel, so that the host's cost of a
+    launch (the wrapper's checks, its allocation, the ctypes call) does
+    not show in a kernel shorter than it.  The sleep is lengthened until
+    it outlasts the host's enqueueing, up to 2**30 cycles; a ``fn`` that
+    waits for the card never lets it, and fails there."""
+    import torch
+
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    cycles = 1 << 21
+    while cycles <= 1 << 30:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        torch.cuda._sleep(cycles)
+        torch.cuda.synchronize()
+        if host_ms < 0.8 * (time.perf_counter() - t1) * 1e3:
+            return start.elapsed_time(end) / reps
+        cycles *= 2
+    fail(f"queued timing: {reps} launches still not queued behind a sleep "
+         f"of {cycles // 2} cycles")
+
+
 #: INT32 operations per second of the card, set in phase 1: SMs × 64
 #: INT32 lanes × the maximum SM clock
 INT_OPS_PER_S = None
@@ -220,6 +282,42 @@ def bound(nbytes: float, ops: float) -> dict:
     t_ops = ops / INT_OPS_PER_S
     return {"bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def k3_sass_step(so: str) -> None:
+    """Print the instructions of K3's compiled word step, beside the
+    operations its bound counts (``K3_OPS_PER_WORD32``): the row loops
+    of ``nw_dist_kernel<true, 1>`` (the loops its SASS closes with a
+    backward branch, one per window) over the ``K3_ROWS_PER_LOOP`` rows
+    a pass advances, its 16-code template load included.  A diagnostic
+    only; fails where the toolkit has no ``cuobjdump``."""
+    import re
+
+    from dentist_tpu_torch import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        fail(f"K3 word step: no {tool}")
+    sass = subprocess.run([tool, "-sass", so], capture_output=True, text=True,
+                          check=True).stdout
+    for fn in re.split(r"\n\s*Function : ", sass):
+        if not re.match(r"\S*nw_dist_kernelILb1ELi1E", fn):
+            continue
+        addrs = [int(a, 16) for a, op in re.findall(
+            r"/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;", fn)]
+        loops = [sum(int(t, 16) <= b <= int(a, 16) for b in addrs)
+                 for a, t in re.findall(r"/\*([0-9a-f]{4,})\*/[^;]*?\bBRA\s+(0x[0-9a-f]+)", fn)
+                 if int(t, 16) < int(a, 16)]
+        loops = [n for n in loops if n >= 4 * K3_ROWS_PER_LOOP]
+        if loops:
+            log(f"  K3 word step: {sum(loops) / len(loops) / K3_ROWS_PER_LOOP:.2f} "
+                f"SASS instructions a row on one 64-bit word (cuobjdump -sass: "
+                f"nw_dist_kernel<1, 1>'s row loops {loops} instructions for "
+                f"{K3_ROWS_PER_LOOP} rows each); the bound counts "
+                f"{2 * K3_OPS_PER_WORD32} operations, {K3_OPS_PER_WORD32} "
+                f"on each 32 read columns")
+            return
+    fail("K3 word step: no row loop in nw_dist_kernel<1, 1>'s SASS")
 
 
 def nbytes(*tensors) -> int:
@@ -547,7 +645,109 @@ def scorer_work(args, T: int, W=None) -> dict:
                          np.maximum(rl - W // 2, 0))
         per_row = np.minimum(off + W - 1, rl) - np.maximum(off, 0) + 1
     cells = int((np.clip(per_row, 0, None) * (i <= tl)).sum())
-    return bound(nbytes(*args) + 4 * r_lens.numel(), OPS_PER_CELL["K3"] * cells)
+    return bound(nbytes(*args) + 4 * r_lens.numel(), OPS_PER_CELL["K3f"] * cells)
+
+
+def k3_counts(meta, TW: int, RW: int) -> dict:
+    """What K3's inputs need: live candidates (a base window), filled
+    read slots (rl > 0), and over both halves and the filled slots, the
+    DP cells min(tl, TW) x (rl + 1) and the word rows min(tl, TW) x
+    ceil(rl / 32), on 32-bit words (a half runs no row where tl <= 0 or
+    tl > TW, a slot none where rl <= 0 or rl > RW); and the counts of
+    the live candidates' base lengths (0 .. TW + 1, longer ones at
+    TW + 1) and of the filled slots' lengths (0 .. RW + 1)."""
+    import torch
+
+    tl = meta[:, :2].long()
+    rl = meta[:, 2:].long()
+    rows = torch.where((tl >= 1) & (tl <= TW), tl, 0).sum(1, keepdim=True)
+    r = torch.where((rl >= 1) & (rl <= RW), rl, 0)
+    base = tl[:, 0][tl[:, 0] > 0].clamp(max=TW + 1)
+    return {"live": int((tl[:, 0] > 0).sum()), "filled": int((rl > 0).sum()),
+            "cells": int((rows * (r + 1) * (r > 0)).sum()),
+            "word_rows": int((rows * ((r + 31) // 32)).sum()),
+            "tl_hist": torch.bincount(base, minlength=TW + 2).cpu().numpy(),
+            "rl_hist": torch.bincount(rl[rl > 0].clamp(max=RW + 1),
+                                      minlength=RW + 2).cpu().numpy()}
+
+
+def k3_work(rows, meta, TW: int, RW: int) -> dict:
+    """K3's and K3p's bound: the rows (packed or not) and meta in, the
+    (2, V, NB) distances out; ``K3_OPS_PER_WORD32`` operations per word
+    row of :func:`k3_counts`, whose cell count rides along for the cell
+    rate."""
+    counts = k3_counts(meta, TW, RW)
+    out_b = 2 * meta.shape[0] * (meta.shape[1] - 2) * 4
+    return {**bound(nbytes(rows, meta) + out_b,
+                    K3_OPS_PER_WORD32 * counts["word_rows"]),
+            "cells": counts["cells"]}
+
+
+def hold_k3(what: str, b, p, m, TW: int, TWp: int, RW: int, NB: int) -> dict:
+    """K3 on the rows ``b`` and K3p on their packing ``p``, each against
+    its plain version (tolerance 0) and against each other, with its
+    time through the wrapper (``hold``, launches back to back, as every
+    kernel is timed), its device time with the launches queued
+    (:func:`cuda_ms_queued`: the kernel is shorter than a launch through
+    the wrapper), each one's ratio to the bound, and its DP cells a
+    second of device time; K3p's stats."""
+    from dentist_tpu_torch.ops import nw_dist
+
+    stats = []
+    for mode, rows, kernel, plain in (
+            ("K3 nw_dist", b, nw_dist.nw_dist_pairs,
+             nw_dist.nw_dist_pairs_reference),
+            ("K3p nw_dist_packed", p, nw_dist.nw_dist_pairs_packed,
+             nw_dist.nw_dist_pairs_packed_reference)):
+        work = k3_work(rows, m, TW, RW)
+        call = lambda: kernel(rows, m, TW, TWp, RW, NB)
+        st = hold(f"{mode} {what}", call,
+                  lambda: plain(rows, m, TW, TWp, RW, NB), 20, work)
+        st["device_ms"] = cuda_ms_queued(call, 20)
+        log(f"  {st['ms'] / st['bound_ms']:.1f}x the bound through the "
+            f"wrapper; device {st['device_ms']:.4f} ms (launches queued), "
+            f"{st['device_ms'] / st['bound_ms']:.1f}x the bound, "
+            f"{work['cells'] / st['device_ms'] / 1e6:.1f} G cells/s")
+        stats.append(st)
+    if max_abs_err(stats[1]["out"], stats[0]["out"]):
+        fail(f"K3p != K3 on the same rows at {what}")
+    return stats[1]
+
+
+def k3_case(rng, V: int, NB: int, TW: int, TWp: int, RW: int, live: int,
+            per: int, tl_hist, rl_hist):
+    """K3 rows at one of the main path's launch shapes: ``live``
+    candidates, each a base window of a length drawn from ``tl_hist``
+    (:func:`k3_counts`) and an edited window one deletion, insertion or
+    substitution away, and ``per`` read slots each, holding noisy copies
+    of the window (``sim.reads._mutate``: 13 % error, the simulator's
+    mix, continued periodically past the window's end) cut to lengths
+    drawn from ``rl_hist`` (a length over RW keeps RW chars and, as on
+    the main path, scores INF); then padding.  Returns the rows, their
+    packing and the meta on the card."""
+    import torch
+
+    from dentist_tpu_torch.ops.pack2 import pack2bit
+    from dentist_tpu_torch.sim.reads import _mutate
+
+    buf = np.zeros((V, 2 * TWp + NB * RW), np.uint8)
+    meta = np.zeros((V, 2 + NB), np.int32)
+    wls = rng.choice(TW + 2, live, p=tl_hist / tl_hist.sum()).clip(1, TW)
+    rls = rng.choice(RW + 2, (live, per), p=rl_hist / rl_hist.sum())
+    for v, wl in enumerate(wls):
+        w = rng.integers(0, 4, wl).astype(np.uint8)
+        d = wl // 2
+        e = (np.delete(w, d), np.insert(w, d, rng.integers(0, 4)),
+             np.where(np.arange(wl) == d, (w + 1) % 4, w).astype(np.uint8))[v % 3][:TWp]
+        buf[v, :wl] = w
+        buf[v, TWp : TWp + len(e)] = e
+        meta[v, :2] = wl, len(e)
+        for nb, rl in enumerate(rls[v]):
+            r = np.resize(_mutate(np.resize(w, rl + 8), rng, 0.13), min(rl, RW))
+            buf[v, 2 * TWp + nb * RW : 2 * TWp + nb * RW + len(r)] = r
+            meta[v, 2 + nb] = rl
+    return (torch.from_numpy(buf).cuda(), torch.from_numpy(pack2bit(buf)).cuda(),
+            torch.from_numpy(meta).cuda())
 
 
 def phase_kernels():
@@ -669,8 +869,8 @@ def phase_kernels():
     rows.append(("K5 store_write", "dentist_tpu_torch/csrc/store_write.cu",
                  "dentist_tpu/ops/banded.py:448", "main", "K5", k5))
 
-    # K3 and K3p: the polish scorer at V = 256 candidates
-    k3p = {}
+    # K3 and K3p: the polish scorer at V = 256 candidates (and after
+    # phase 5 at the main path's buckets, phase_k3)
     TW, TWp, RW, V = 34, 36, 48, 256
     for NB in (8, 32):
         buf = np.zeros((V, 2 * TWp + NB * RW), np.uint8)
@@ -689,25 +889,8 @@ def phase_kernels():
                 buf[v, 2 * TWp + nb * RW : 2 * TWp + nb * RW + wl] = r
                 meta[v, 2 + nb] = wl
         b, m = torch.from_numpy(buf).cuda(), torch.from_numpy(meta).cuda()
-        # cells: both templates' rows times each read's columns
-        cells = int(((m[:, :1] + m[:, 1:2]) * (m[:, 2:] + 1)).sum())
-        out_b = 2 * V * NB * 4
-        st = hold(f"K3 nw_dist V={V} NB={NB}",
-                  lambda: nw_dist.nw_dist_pairs(b, m, TW, TWp, RW, NB),
-                  lambda: nw_dist.nw_dist_pairs_reference(b, m, TW, TWp, RW, NB),
-                  10, bound(nbytes(b, m) + out_b, OPS_PER_CELL["K3"] * cells))
-        unpacked = st["out"]
         p = torch.from_numpy(pack2bit(buf)).cuda()
-        st = hold(f"K3p nw_dist_packed V={V} NB={NB}",
-                  lambda: nw_dist.nw_dist_pairs_packed(p, m, TW, TWp, RW, NB),
-                  lambda: nw_dist.nw_dist_pairs_packed_reference(p, m, TW, TWp,
-                                                                 RW, NB), 10,
-                  bound(nbytes(p, m) + out_b, OPS_PER_CELL["K3"] * cells))
-        if max_abs_err(st["out"], unpacked):
-            fail(f"K3p != K3 on the same rows at NB={NB}")
-        k3p = merge(k3p, st)
-    rows.append(("K3p nw_dist_packed", "dentist_tpu_torch/csrc/nw_dist.cu",
-                 "dentist_tpu/ops/consensus.py:2065", "main", "K3p", k3p))
+        hold_k3(f"V={V} NB={NB}", b, p, m, TW, TWp, RW, NB)
 
     # K3f and K3b, the scorer modes no path runs: K3f at K3's shapes,
     # K3b at a full consensus round's template and read widths
@@ -754,6 +937,7 @@ EXTEND_ENTRIES = {"dentist_extend": (4, 5), "dentist_extend_packed": (4, 4)}
 NW_ROUND_ENTRIES = {"dentist_nw_round": (13, 8),
                     "dentist_nw_round_packed": (11, 8),
                     "dentist_nw_round_resident": (11, 9)}
+NW_DIST_ENTRIES = {"dentist_nw_dist": (3, 5), "dentist_nw_dist_packed": (3, 5)}
 
 
 def build_baseline(path: str, entries: dict):
@@ -896,9 +1080,11 @@ def k2_baseline_run(fn, src_args, T: int, RL: int, N: int, kw: dict, extra=()):
     return call, outs
 
 
-def turns(what: str, kernel, old) -> list:
-    """``old`` and ``kernel`` timed in turns (old, kernel, kernel, old)."""
-    ms = [cuda_ms(old, 3), cuda_ms(kernel, 3), cuda_ms(kernel, 3), cuda_ms(old, 3)]
+def turns(what: str, kernel, old, reps: int = 3, timer=cuda_ms) -> list:
+    """``old`` and ``kernel`` timed in turns (old, kernel, kernel, old),
+    each the mean of ``reps`` launches by ``timer``."""
+    ms = [timer(old, reps), timer(kernel, reps), timer(kernel, reps),
+          timer(old, reps)]
     log(f"  {what} baseline, kernel, kernel, baseline ms: "
         f"{', '.join(f'{m:.3f}' for m in ms)}; kernel "
         f"{(ms[0] + ms[3]) / (ms[1] + ms[2]):.2f}x faster")
@@ -1010,6 +1196,75 @@ def phase_k2(k2_buckets: dict, baseline) -> list:
              "main", "K2r", k2r)]
 
 
+def phase_k3(k3_buckets: dict, baseline) -> list:
+    """Phase 3 for K3 and K3p, after phase 5: each against its plain
+    version at every (V, NB) bucket of the main path's K3p launches, on
+    inputs with as many live candidates and filled read slots as those
+    launches held on average and lengths drawn from theirs
+    (:func:`k3_case`), with its time, bound, their ratio and its cell
+    rate.  Each case's word rows and cells must be within
+    ``K3_CASE_MARGIN`` of the launches' average.  With ``baseline``
+    (:func:`build_baseline`), the other version's K3 and K3p are checked
+    equal to these at the largest bucket and at V = 256, NB = 8, and its
+    K3p is timed beside this one's there, in turns, by device time
+    (:func:`cuda_ms_queued`)."""
+    import torch
+
+    from dentist_tpu_torch.ops import nw_dist
+
+    rng = np.random.default_rng(2026)
+    k3p, cases = {}, {}
+    for (V, NB, TW, TWp, RW), rec in sorted(
+            k3_buckets.items(), key=lambda kv: kv[0][0] * kv[0][1]):
+        n = rec["launches"]
+        live = max(1, round(rec["live"] / n))
+        per = min(NB, max(1, round(rec["filled"] / max(1, rec["live"]))))
+        b, p, m = k3_case(rng, V, NB, TW, TWp, RW, live, per,
+                          rec["tl_hist"], rec["rl_hist"])
+        c = k3_counts(m, TW, RW)
+        for name in ("word_rows", "cells"):
+            want = rec[name] / n
+            log(f"  K3 case V={V} NB={NB}: {c[name]} {name.replace('_', ' ')}, "
+                f"{c[name] / want:.3f}x phase 5's {want:.0f} a launch")
+            if abs(c[name] / want - 1) > K3_CASE_MARGIN:
+                fail(f"K3 case V={V} NB={NB}: {name} {c[name]} not within "
+                     f"{K3_CASE_MARGIN:.0%} of phase 5's {want:.0f}")
+        st = hold_k3(f"V={V} NB={NB} live={c['live']} filled={c['filled']}",
+                     b, p, m, TW, TWp, RW, NB)
+        k3p = merge(k3p, st)
+        cases[V, NB] = (b, p, m, TW, TWp, RW, st)
+    if not baseline:
+        log("  no --baseline-nw-dist given: no other K3 version timed")
+        return [("K3p nw_dist_packed", "dentist_tpu_torch/csrc/nw_dist.cu",
+                 "dentist_tpu/ops/consensus.py:2065", "main", "K3p", k3p)]
+    if (256, 8) not in cases:  # the phase-3 shape, every slot filled
+        rec = k3_buckets[max(k3_buckets, key=lambda k: k[0] * k[1])]
+        b, p, m = k3_case(rng, 256, 8, 34, 36, 48, 256, 8, rec["tl_hist"],
+                          rec["rl_hist"])
+        cases[256, 8] = (b, p, m, 34, 36, 48,
+                         hold_k3("V=256 NB=8", b, p, m, 34, 36, 48, 8))
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    for V, NB in sorted({max(cases, key=lambda k: k[0] * k[1]), (256, 8)},
+                        key=lambda k: -k[0] * k[1]):
+        b, p, m, TW, TWp, RW, st = cases[V, NB]
+        calls = {}
+        for name, rows in (("dentist_nw_dist", b), ("dentist_nw_dist_packed", p)):
+            out = torch.empty((2, V, NB), dtype=torch.int32, device="cuda")
+            calls[name] = (lambda fn=baseline[name], rows=rows, out=out: fn(
+                rows.data_ptr(), m.data_ptr(), out.data_ptr(), V, TW, TWp, RW,
+                NB, stream()))
+            calls[name]()
+            torch.cuda.synchronize()
+            if max_abs_err(out, st["out"]):
+                fail(f"{name} baseline != kernel at V={V} NB={NB}")
+        log(f"  K3 and K3p baseline equal to the kernel at V={V} NB={NB}")
+        turns(f"K3p V={V} NB={NB} (device time, launches queued):",
+              lambda: nw_dist.nw_dist_pairs_packed(p, m, TW, TWp, RW, NB),
+              calls["dentist_nw_dist_packed"], 20, cuda_ms_queued)
+    return [("K3p nw_dist_packed", "dentist_tpu_torch/csrc/nw_dist.cu",
+             "dentist_tpu/ops/consensus.py:2065", "main", "K3p", k3p)]
+
+
 # ----------------------------------------------------------------------
 # phases 4 and 5: the main path
 
@@ -1085,15 +1340,27 @@ def phase_a(tmp: str) -> dict:
         return recorded_k2
 
     k2_fns = (consensus.nw_round_packed, consensus.nw_round_resident)
+    # each K3p launch's (V, NB, TW, TWp, RW) and what its inputs need
+    # (k3_counts), through a wrapper around the name consensus calls
+    k3_shapes = []
+    k3_fn = consensus.nw_dist_pairs_packed
+
+    def recorded_k3(chars, meta, TW, TWp, RW, NB):
+        k3_shapes.append(((meta.shape[0], NB, TW, TWp, RW),
+                          k3_counts(meta, TW, RW)))
+        return k3_fn(chars, meta, TW=TW, TWp=TWp, RW=RW, NB=NB)
+
     banded.extend = recorded
     consensus.nw_round_packed = k2_recorder("K2p", k2_fns[0])
     consensus.nw_round_resident = k2_recorder("K2r", k2_fns[1])
+    consensus.nw_dist_pairs_packed = recorded_k3
     reset_launch_counts()
     try:
         result, out, wall = run_phase_a(d, asm, reads, "")
     finally:
         banded.extend = extend
         consensus.nw_round_packed, consensus.nw_round_resident = k2_fns
+        consensus.nw_dist_pairs_packed = k3_fn
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     n_pileups = None
@@ -1126,6 +1393,18 @@ def phase_a(tmp: str) -> dict:
     log("  K2p and K2r launches by (T, RL, N): " + "; ".join(
         f"{mode} ({T}, {RL}, {N}) x{c}, {live} live lanes"
         for (mode, T, RL, N), (c, live) in sorted(k2_buckets.items())))
+    k3_buckets: dict = {}
+    for key, counts in k3_shapes:
+        rec = k3_buckets.setdefault(key, {"launches": 0})
+        rec["launches"] += 1
+        for name, x in counts.items():
+            rec[name] = rec.get(name, 0) + x
+    log("  K3p launches by (V, NB, TW, TWp, RW): " + "; ".join(
+        f"{key} x{r['launches']}, {r['live']} live candidates, {r['filled']} "
+        f"filled slots, {r['cells']} cells, {r['word_rows']} word rows "
+        f"(32-bit), mean lengths {(np.arange(len(r['tl_hist'])) * r['tl_hist']).sum() / max(1, r['live']):.2f} "
+        f"(base windows), {(np.arange(len(r['rl_hist'])) * r['rl_hist']).sum() / max(1, r['filled']):.2f} (reads)"
+        for key, r in sorted(k3_buckets.items())))
     for name, want in PHASE_A_SHA256.items():
         got = sha256(os.path.join(d, name))
         if got != want:
@@ -1141,7 +1420,7 @@ def phase_a(tmp: str) -> dict:
         fail(f"closed {result.n_closed_gaps} gaps, JAX closes {PHASE_A_JAX_CLOSED}")
     if exact < PHASE_A_JAX_EXACT:
         fail(f"{exact} gaps closed byte-exact, JAX closes {PHASE_A_JAX_EXACT}")
-    return launches, sc, buckets, k2_buckets
+    return launches, sc, buckets, k2_buckets, k3_buckets
 
 
 def consensus_sections(sections: dict) -> dict:
@@ -1488,6 +1767,9 @@ def main() -> None:
                     help="another version's csrc/nw_round.cu (pack2.cuh "
                          "beside it): phase 3 times its K2p and K2r beside "
                          "this one's")
+    ap.add_argument("--baseline-nw-dist", metavar="PATH",
+                    help="another version's csrc/nw_dist.cu (pack2.cuh "
+                         "beside it): phase 3 times its K3p beside this one's")
     args = ap.parse_args()
     try:
         import torch
@@ -1524,6 +1806,7 @@ def main() -> None:
         f"(nvcc {_build.build_seconds:.1f} s)")
     for line in ptxas_lines(_build.build_log):
         log(f"  {line}")
+    k3_sass_step(_build.library()._name)
 
     # 3. kernels against their plain versions (K1 and K1p after phase 5)
     rows, phase3 = phase_kernels()
@@ -1531,15 +1814,18 @@ def main() -> None:
                 if args.baseline_extend else None)
     baseline_k2 = (build_baseline(args.baseline_nw_round, NW_ROUND_ENTRIES)
                    if args.baseline_nw_round else None)
+    baseline_k3 = (build_baseline(args.baseline_nw_dist, NW_DIST_ENTRIES)
+                   if args.baseline_nw_dist else None)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         # 4. main path, small, against the JAX package's hashes
         phase_e2e(tmp)
         # 5. main path at real size
-        launches, sc, buckets, k2_buckets = phase_a(tmp)
-        # 3, K1, K1p, K2, K2p and K2r: at the bucket pairs phase 5 launched
-        rows = phase_k1(buckets, baseline) + phase_k2(k2_buckets,
-                                                      baseline_k2) + rows
+        launches, sc, buckets, k2_buckets, k3_buckets = phase_a(tmp)
+        # 3, K1, K1p, K2, K2p, K2r, K3 and K3p: at the buckets phase 5
+        # launched
+        rows = (phase_k1(buckets, baseline) + phase_k2(k2_buckets, baseline_k2)
+                + phase_k3(k3_buckets, baseline_k3) + rows)
         # 6. where the time goes in later calls
         phase_profile(tmp, PROFILE_CALLS)
         # 7. host-window path on the card

@@ -18,7 +18,8 @@ uses for CPU tensors only:
   store-resident lanes;
 - K4/K4w ``ops/round_pack.py`` + ``csrc/round_pack.cu`` — the rounds'
   sparse and dense result blocks;
-- K3/K3p ``ops/nw_dist.py`` + ``csrc/nw_dist.cu`` — the polish scorer.
+- K3/K3p ``ops/nw_dist.py`` + ``csrc/nw_dist.cu`` — the polish scorer
+  (bit-parallel: one thread per read slot, the read as 64-bit words).
 
 ``parallel/dp.py`` splits every dispatch over ``torch.distributed``
 ranks, one per card.  Entry point: ``python -m dentist_tpu_torch

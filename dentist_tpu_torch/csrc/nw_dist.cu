@@ -2,28 +2,51 @@
 // consensus polish scorer.
 //
 // Replaces dentist_tpu/ops/consensus.py:_nw_dist_full(global_ends=True)
-// as called by _nw_dist_pair_packed: every candidate edit v carries a base
-// window and an edited window (<= TW = 34 template chars) and NB read
-// segments (<= RW = 48 chars); both windows are scored against every
-// segment, giving (2, V, NB) distances.
+// as called by _nw_dist_pair_packed (2065): every candidate edit v carries
+// a base window and an edited window (<= TW = 34 template chars) and NB
+// read segments (<= RW = 48 chars); both windows are scored against every
+// segment, giving (2, V, NB) distances.  K3p, the packed mode (kPacked),
+// takes the rows 2-bit packed, as _nw_dist_pair_packed does with its
+// _unpack2bit; K3 takes one code a byte (& 3).
 //
-// What bounds it on the card: arithmetic and occupancy, not bytes.  A pair
-// is TW x (RW + 1) cells of a few integer ops on ~100 input bytes, and a
-// dispatch holds up to 2 x 4096 x 128 = 1 M pairs.
+// The result of a pair is one integer, D[tl][rl], so any exact method
+// gives JAX's value.  This one is bit-parallel: Myers's algorithm (J. ACM
+// 46:395, 1999) in Hyyro's formulation with the top row anchored
+// (D[i][0] = i), as Edlib's global mode runs it.  The read is the pattern,
+// held as kWords 64-bit words (1 for RW <= 64, 2 up to 127): Pv / Mv mark
+// the columns j where D[i][j] - D[i][j-1] is +1 / -1.  A template row is
+// one step of about 15 word operations (an add, shifts, LOP3s), not RW + 1
+// cells; after row tl, D[tl][rl] = tl + popc(Pv) - popc(Mv) over the
+// read's rl bits.  Bits at and above rl are never read back (the add's
+// carries and the shifts move only upward), so the words need no masking.
 //
-// Design: one thread per pair.  The thread keeps its DP row in local
-// memory and walks each template row left to right, so the horizontal
-// closure D[j] = min(tmp[j], D[j-1] + 1) is a running minimum and needs no
-// scan or shuffle; rows past the template length cannot change the
-// result, so the loop stops there.  Neighbouring threads score the same
-// candidate against neighbouring segments, so they share the template
-// window through the cache.  Reads up to 127 chars are accepted.
+// Design:
+// - One thread per (v, nb) read slot.  It decodes its read once, into two
+//   bit planes (bit j of hi / lo is read[j]'s high / low code bit; the
+//   match mask of code (t1, t0) is ~(hi ^ t1) & ~(lo ^ t0), each bit
+//   spread over the word), and scores it
+//   against both windows.  Consecutive threads take consecutive nb of one
+//   v, so a warp's template loads are one broadcast address (NB >= 32).
+// - Codes arrive 16 at a time (codes16: five byte loads and shifts;
+//   planes16: a bit reverse and a 4-step unshuffle), at any char offset:
+//   TWp and RW may be odd.  A template row's code is a constant shift of
+//   its 16-code word, in a 16-row loop unrolled in registers.
+// - Nothing is in local memory: the planes and Pv / Mv are kWords-word
+//   arrays indexed only by unrolled loops.
+// - JAX's INF cases are kept: tl <= 0, tl > TW (JAX scans TW rows, so row
+//   tl is never reached), rl < 0, rl > RW.  rl = 0 gives tl.  Those slots,
+//   and the slots the NB bucket pads with rl = 0, run no row.
 //
-// K3p, the packed mode (kPacked), replaces _nw_dist_pair_packed
-// (consensus.py:2065) with its _unpack2bit: a candidate's [base window |
-// edited window | NB read segments] arrive as one 2-bit packed row, and
-// each thread decodes its template and read characters through
-// pack2.cuh.  The DP is the same code.
+// What bounds it: integer issue.  The recurrence needs 11 INT32
+// operations per template row and 32 read columns (the match mask, the
+// add, 7 LOP3s, 2 shifts: chip_smoke.py's bound); the compiled row loop
+// issues about 35 per row on a 64-bit word (its SASS, which chip_smoke.py
+// prints beside), the rest being the code's spread, the loads of the
+// template's codes and the loop's control.  ~100 input bytes a slot.  At the main path's large launches
+// (V = 4096, NB >= 32: 131 k threads or more) the card is full, and the
+// slots a bucket pads (rl = 0) idle beside their warp's filled ones; at
+// V = 256 (2 k to 8 k threads) one row's dependent chain and the launch
+// set the time.
 //
 // K3f (nw_dist_full_kernel) and K3b (banded_nw_dist_kernel) are the two
 // other scorer modes of the JAX package, on its general layout: templates
@@ -32,8 +55,8 @@
 // start and end anywhere in the template and the template anywhere in the
 // read, at no cost).  No path of the JAX package calls them; they are
 // held against their plain versions only.
-// - K3f replaces consensus.py:_nw_dist_full, both end modes: K3's
-//   one-thread-per-pair full-width row, RL <= 127.
+// - K3f replaces consensus.py:_nw_dist_full, both end modes: one thread
+//   per pair walks a full-width row through local memory, RL <= 127.
 // - K3b replaces consensus.py:_banded_nw_dist: one thread per pair keeps
 //   a W-cell band (W <= 256) of its row in local memory; the band of row
 //   i starts at read column off(i) = clip(i * rl / t_len - W/2, ...), so
@@ -43,13 +66,11 @@
 //   because s >= 0, and the second is the first of cell p - 1, carried in
 //   a register.  Any read length is accepted; reads are read from device
 //   memory cell by cell.
-// Both are bound by arithmetic, as K3: a few integer ops per DP cell on a
-// few bytes per row.
+// Both are bound by arithmetic: a few integer ops per DP cell on a few
+// bytes per row.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include "pack2.cuh"
 
 namespace {
 
@@ -57,54 +78,144 @@ constexpr int kInf = 1 << 28;
 constexpr int kRwMax = 127;
 constexpr int kBandMax = 256;
 
+// 16 codes of a row from code k on, code k in bits 31..30; codes past the
+// row's n_bytes bytes read as 0.  Packed rows hold four codes a byte, the
+// first in the high bits (as pack2.cuh reads them); unpacked rows one
+// code a byte.
 template <bool kPacked>
-__global__ void nw_dist_kernel(const uint8_t* __restrict__ buf,  // (V, L | L/4)
-                               const int* __restrict__ meta,     // (V, 2+NB)
-                               int* __restrict__ out,            // (2, V, NB)
-                               int V, int TW, int TWp, int RW, int NB) {
-  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long total = 2LL * V * NB;
-  if (g >= total) return;
-  const int half = (int)(g / ((long long)V * NB));
-  const int v = (int)((g / NB) % V);
-  const int nb = (int)(g % NB);
-  const int L = 2 * TWp + NB * RW;
-  const uint8_t* row = buf + (size_t)v * (kPacked ? L / 4 : L);
-  const int t0 = half * TWp;              // template offset in the row
-  const int r0 = 2 * TWp + nb * RW;       // read segment offset in the row
-  auto ch = [&](int k) {
-    if constexpr (kPacked) return code2(row, k);
-    else return row[k] & 3;
-  };
-  const int tl = meta[(size_t)v * (2 + NB) + half];
-  const int rl = meta[(size_t)v * (2 + NB) + 2 + nb];
-
-  uint8_t r[kRwMax];
-  int D[kRwMax + 1];
-  for (int j = 0; j < RW; ++j) r[j] = (uint8_t)ch(r0 + j);
-  for (int j = 0; j <= RW; ++j) D[j] = j <= rl ? j : kInf;
-
-  int best = kInf;
-  const int rows = tl < TW ? tl : TW;
-  for (int i = 1; i <= rows; ++i) {
-    const int t_ch = ch(t0 + i - 1);
-    int old_left = kInf;  // D of the previous row at j - 1
-    int run = kInf;       // min over q <= j of tmp[q] - q
-    for (int j = 0; j <= RW; ++j) {
-      const int old = D[j];
-      const int diag = j >= 1 ? old_left + (r[j - 1] != t_ch) : kInf;
-      int tmp = min(diag, old + 1);
-      const bool ok = j <= rl;
-      if (!ok) tmp = kInf;
-      run = min(run, tmp - j);
-      D[j] = ok ? min(min(tmp, run + j), kInf) : kInf;
-      old_left = old;
-    }
-    if (i == tl && rl >= 0 && rl <= RW) best = min(best, D[rl]);
+__device__ __forceinline__ uint32_t codes16(const uint8_t* __restrict__ row,
+                                            int k, int n_bytes) {
+  if constexpr (kPacked) {
+    const int b = k >> 2, s = 2 * (k & 3);
+    uint32_t x = 0;  // bytes b .. b+3, the first on top
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      x = (x << 8) | (b + q < n_bytes ? __ldg(row + b + q) : 0u);
+    const uint32_t next = b + 4 < n_bytes ? __ldg(row + b + 4) : 0u;
+    return (x << s) | (next << s >> 8);
+  } else {
+    uint32_t x = 0;
+#pragma unroll
+    for (int q = 0; q < 16; ++q)
+      x = (x << 2) | (k + q < n_bytes ? __ldg(row + k + q) & 3u : 0u);
+    return x;
   }
-  out[g] = best;
 }
 
+// the 16 codes of w (codes16's order) as bit planes: bit j of the low half
+// is code j's high bit, bit j of the high half its low bit
+__device__ __forceinline__ uint32_t planes16(uint32_t w) {
+  uint32_t x = __brev(w), t;  // code j's high bit at 2j, its low bit at 2j+1
+  t = (x ^ (x >> 1)) & 0x22222222u; x ^= t ^ (t << 1);
+  t = (x ^ (x >> 2)) & 0x0C0C0C0Cu; x ^= t ^ (t << 2);
+  t = (x ^ (x >> 4)) & 0x00F000F0u; x ^= t ^ (t << 4);
+  t = (x ^ (x >> 8)) & 0x0000FF00u; x ^= t ^ (t << 8);
+  return x;
+}
+
+// D[tl][rl] of the template at code t0 of row (1 <= tl, 1 <= rl) against
+// the read's planes: one word step per template row
+template <bool kPacked, int kWords>
+__device__ __forceinline__ int myers(const uint8_t* __restrict__ row, int t0,
+                                     int tl, int rl, int n_bytes,
+                                     const uint64_t (&hi)[kWords],
+                                     const uint64_t (&lo)[kWords]) {
+  uint64_t pv[kWords], mv[kWords];
+#pragma unroll
+  for (int q = 0; q < kWords; ++q) pv[q] = ~0ull, mv[q] = 0;  // D[0][j] = j
+  for (int c = 0; c < tl; c += 16) {
+    const uint32_t w = codes16<kPacked>(row, t0 + c, n_bytes);
+    const int n = tl - c;
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      if (k >= n) break;
+      // the code's high and low bits, each spread over a word (~0 or 0)
+      const uint64_t b1 = (uint64_t)(int64_t)((int32_t)(w << (2 * k)) >> 31);
+      const uint64_t b0 = (uint64_t)(int64_t)((int32_t)(w << (2 * k + 1)) >> 31);
+      uint64_t carry = 0, ph_in = 1, mh_in = 0;  // ph_in: D[i][0] = i
+#pragma unroll
+      for (int q = 0; q < kWords; ++q) {
+        const uint64_t eq = ~(hi[q] ^ b1) & ~(lo[q] ^ b0);  // read[j] == code
+        const uint64_t xv = eq | mv[q];
+        const uint64_t a = eq & pv[q];
+        const uint64_t s = a + pv[q];
+        const uint64_t s2 = s + carry;
+        carry = (uint64_t)(s < a) | (uint64_t)(s2 < s);
+        const uint64_t xh = (s2 ^ pv[q]) | eq;
+        const uint64_t ph = mv[q] | ~(xh | pv[q]);
+        const uint64_t mh = pv[q] & xh;
+        const uint64_t ph_s = (ph << 1) | ph_in;
+        const uint64_t mh_s = (mh << 1) | mh_in;
+        ph_in = ph >> 63;
+        mh_in = mh >> 63;
+        pv[q] = mh_s | ~(xv | ph_s);
+        mv[q] = ph_s & xv;
+      }
+    }
+  }
+  int d = tl;  // D[tl][0]
+#pragma unroll
+  for (int q = 0; q < kWords; ++q) {
+    const int n = rl - 64 * q;  // the read's bits in this word
+    const uint64_t mask = n >= 64 ? ~0ull : n > 0 ? (1ull << n) - 1 : 0ull;
+    d += __popcll(pv[q] & mask) - __popcll(mv[q] & mask);
+  }
+  return d;
+}
+
+template <bool kPacked, int kWords>
+__global__ void __launch_bounds__(128)
+nw_dist_kernel(const uint8_t* __restrict__ buf,  // (V, L | L/4)
+               const int* __restrict__ meta,     // (V, 2+NB)
+               int* __restrict__ out,            // (2, V, NB)
+               int V, int TW, int TWp, int RW, int NB) {
+  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long slots = (long long)V * NB;
+  if (g >= slots) return;
+  const int v = (int)(g / NB);
+  const int nb = (int)(g % NB);
+  const int L = 2 * TWp + NB * RW;
+  const int n_bytes = kPacked ? L / 4 : L;
+  const uint8_t* row = buf + (size_t)v * n_bytes;
+  const int* m = meta + (size_t)v * (2 + NB);
+  const int rl = m[2 + nb];
+  const bool read_ok = rl >= 0 && rl <= RW;
+
+  uint64_t hi[kWords], lo[kWords];
+#pragma unroll
+  for (int q = 0; q < kWords; ++q) hi[q] = lo[q] = 0;
+  const int r0 = 2 * TWp + nb * RW;
+#pragma unroll
+  for (int c = 0; c < 4 * kWords; ++c) {
+    if (read_ok && 16 * c < rl) {
+      const uint32_t x = planes16(codes16<kPacked>(row, r0 + 16 * c, n_bytes));
+      hi[c / 4] |= (uint64_t)(x & 0xFFFFu) << (16 * (c % 4));
+      lo[c / 4] |= (uint64_t)(x >> 16) << (16 * (c % 4));
+    }
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int tl = m[half];
+    int d = kInf;
+    if (read_ok && tl >= 1 && tl <= TW)
+      d = rl == 0 ? tl
+                  : myers<kPacked, kWords>(row, half * TWp, tl, rl, n_bytes,
+                                           hi, lo);
+    out[half * slots + g] = d;
+  }
+}
+
+template <bool kPacked>
+int launch_nw_dist(const void* buf, const void* meta, void* out, int V,
+                   int TW, int TWp, int RW, int NB, void* stream) {
+  const long long slots = (long long)V * NB;
+  const int threads = 128;
+  const unsigned blocks = (unsigned)((slots + threads - 1) / threads);
+  auto k = RW <= 64 ? nw_dist_kernel<kPacked, 1> : nw_dist_kernel<kPacked, 2>;
+  k<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)buf, (const int*)meta, (int*)out, V, TW, TWp, RW, NB);
+  return (int)cudaGetLastError();
+}
 
 // K3f: templates (V, T), reads (V, N, RL) -> out (V, N)
 template <bool kGlobal>
@@ -229,24 +340,14 @@ __global__ void banded_nw_dist_kernel(const uint8_t* __restrict__ tpl,
 extern "C" int dentist_nw_dist(const void* buf, const void* meta, void* out,
                                int V, int TW, int TWp, int RW, int NB,
                                void* stream) {
-  const long long total = 2LL * V * NB;
-  const int threads = 128;
-  const long long blocks = (total + threads - 1) / threads;
-  nw_dist_kernel<false><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)buf, (const int*)meta, (int*)out, V, TW, TWp, RW, NB);
-  return (int)cudaGetLastError();
+  return launch_nw_dist<false>(buf, meta, out, V, TW, TWp, RW, NB, stream);
 }
 
 // K3p: chars (V, (2 TWp + NB RW) / 4) packed rows
 extern "C" int dentist_nw_dist_packed(const void* chars, const void* meta,
                                       void* out, int V, int TW, int TWp,
                                       int RW, int NB, void* stream) {
-  const long long total = 2LL * V * NB;
-  const int threads = 128;
-  const long long blocks = (total + threads - 1) / threads;
-  nw_dist_kernel<true><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)chars, (const int*)meta, (int*)out, V, TW, TWp, RW, NB);
-  return (int)cudaGetLastError();
+  return launch_nw_dist<true>(chars, meta, out, V, TW, TWp, RW, NB, stream);
 }
 
 // K3f: templates (V, T), reads (V, N, RL <= 127); global_ends 0 or 1

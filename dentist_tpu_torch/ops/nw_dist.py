@@ -8,7 +8,10 @@ window (≤ TW template chars) are scored against the same NB read
 segments (≤ RW chars each), as exact global edit distances.
 
 :func:`nw_dist_pairs` launches ``csrc/nw_dist.cu`` for CUDA tensors and
-runs :func:`nw_dist_pairs_reference` for CPU tensors.
+runs :func:`nw_dist_pairs_reference` for CPU tensors.  The kernel is
+bit-parallel (Myers's algorithm, one thread per read slot scoring both
+windows); its plain version is the cell DP JAX runs, so the two agree
+only because both are exact.
 :func:`nw_dist_pairs_packed` (K3p) takes the same rows 2-bit packed, as
 ``_nw_dist_pair_packed`` does; its plain version unpacks and calls
 :func:`nw_dist_pairs_reference`.
@@ -36,7 +39,8 @@ __all__ = ["nw_dist_pairs", "nw_dist_pairs_reference", "nw_dist_pairs_packed",
            "banded_nw_dist_reference", "INF"]
 
 INF = 1 << 28
-#: the kernel keeps a read and a DP row per thread: reads up to 127 chars
+#: the kernel holds a read as two 64-bit words at most: reads up to 127
+#: chars
 _RW_MAX = 127
 #: K3b keeps a band of its row per thread: bands up to 256 cells
 _BAND_MAX = 256

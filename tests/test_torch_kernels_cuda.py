@@ -8,7 +8,10 @@ tests/test_torch_kernels_cuda.py`` (``tests/conftest.py`` imports JAX).  Inputs 
 small shapes; every output must be bit-equal (integer DPs).  K1 and K1p
 also run at their edges: band widths 16 to 512, flat and steepest
 schedules, a_len on chunk and trace boundaries, B column ranges cut
-through the band, identity-diagonal bounds, and ragged lane blocks.
+through the band, identity-diagonal bounds, and ragged lane blocks; K3
+and K3p at read widths of one and two words, read lengths on the word
+edges, padded slots, empty candidates and the main path's largest
+launch.
 """
 
 import numpy as np
@@ -487,3 +490,92 @@ def test_nw_round_resident_kernel_at_edges(cuda, W, N, T):
         _k2_equal(got, K2.nw_round_resident(s.cpu(), m.cpu(),
                                             centers_out=cen_ref, **kw))
         assert torch.equal(cen.cpu(), cen_ref)
+
+
+#: K3's edges: read widths of one word (1, 48, 63, 64) and two (65,
+#: 127); one slot per candidate, a few, 33 (a ragged warp) and 128; one
+#: candidate and 257
+_K3_RWS = (1, 48, 63, 64, 65, 127)
+_K3_NBS = (1, 8, 33, 128)
+_K3_VS = (1, 257)
+#: read lengths on the kernel's word and 16-code edges (kept below RW)
+_K3_RLS = (0, 1, 15, 16, 17, 47, 48, 63, 64, 65, 126, 127)
+
+
+def _k3_rows(seed, TW, TWp, RW, NB, V, live=1.0, filled=1.0):
+    """[base window | edited window | NB segments] rows and their meta:
+    window lengths 0, 1, TW, TW + 1 and -1 among ordinary ones; read
+    lengths on the word edges, RW, RW + 1 and -1 among noisy copies
+    (13 %) of the window, homopolymers and tandem repeats; random codes
+    past every length.  ``live`` of the candidates have windows and
+    ``filled`` of their slots reads; the rest are padding (length 0)."""
+    rng = np.random.default_rng(seed)
+    buf = rng.integers(0, 4, (V, 2 * TWp + NB * RW)).astype(np.uint8)
+    meta = np.zeros((V, 2 + NB), np.int32)
+    tls = (0, 1, TW, TW + 1, -1)
+    rls = [r for r in _K3_RLS if r < RW] + [RW, RW + 1, -1]
+    for v in range(int(V * live)):
+        w = rng.integers(0, 4, TW).astype(np.uint8)
+        if v % 3 == 1:
+            w[:] = v % 4
+        elif v % 3 == 2:
+            w = np.resize(w[: int(rng.integers(2, 5))], TW)
+        buf[v, :TW] = w
+        buf[v, TWp + TW // 2] = (w[TW // 2] + 1) % 4
+        meta[v, :2] = ([tls[v % 5], tls[(v + 2) % 5]] if v % 4 == 3
+                       else rng.integers(max(TW - 3, 1), TW + 1, 2))
+        for nb in range(int(NB * filled)):
+            r = np.resize(w, RW + 8)
+            flip = rng.random(len(r)) < 0.13
+            r[flip] = rng.integers(0, 4, int(flip.sum()))
+            r = np.delete(r, np.flatnonzero(rng.random(len(r)) < 0.03))
+            if nb % 5 == 3:
+                r[:] = nb % 4
+            rl = (rls[(v + nb) % len(rls)] if (v + nb) % 3 == 2
+                  else min(int(rng.integers(TW - 4, TW + 5)), RW))
+            n = min(max(rl, 0), RW, len(r))
+            buf[v, 2 * TWp + nb * RW : 2 * TWp + nb * RW + n] = r[:n]
+            meta[v, 2 + nb] = rl
+    return buf, meta
+
+
+def _hold_k3(cuda, buf, meta, TW, TWp, RW, NB):
+    """K3 and (where the row packs into whole bytes) K3p against their
+    plain versions; one launch each."""
+    b, m = torch.from_numpy(buf).to(cuda), torch.from_numpy(meta).to(cuda)
+    n0 = (K3.launches, K3.packed_launches)
+    got = K3.nw_dist_pairs(b, m, TW=TW, TWp=TWp, RW=RW, NB=NB)
+    ref = K3.nw_dist_pairs_reference(b, m, TW, TWp, RW, NB)
+    packs = buf.shape[1] % 4 == 0
+    if packs:
+        c = torch.from_numpy(pack2bit(buf)).to(cuda)
+        got_p = K3.nw_dist_pairs_packed(c, m, TW=TW, TWp=TWp, RW=RW, NB=NB)
+        assert torch.equal(got_p, ref)
+    torch.cuda.synchronize()
+    assert (K3.launches, K3.packed_launches) == (n0[0] + 1, n0[1] + packs)
+    assert torch.equal(got, ref)
+    return ref
+
+
+@pytest.mark.parametrize("V", _K3_VS)
+@pytest.mark.parametrize("NB", _K3_NBS)
+@pytest.mark.parametrize("RW", _K3_RWS)
+def test_nw_dist_kernels_at_edges(cuda, RW, NB, V):
+    """K3 and K3p at the length edges, padded slots and empty candidates;
+    TWp = 36 where NB * RW packs into whole bytes, 37 (windows and
+    segments starting inside a byte) where 2 * TWp + NB * RW can still,
+    35 (K3 alone) where it cannot."""
+    TW = 34
+    TWp = {0: 36, 2: 37}.get(NB * RW % 4, 35)
+    buf, meta = _k3_rows(RW * 1000 + NB * 10 + V, TW, TWp, RW, NB, V,
+                         live=0.8 if V > 1 else 1.0, filled=0.75 if NB > 1 else 1.0)
+    ref = _hold_k3(cuda, buf, meta, TW, TWp, RW, NB)
+    assert (ref < K3.INF).any()
+
+
+def test_nw_dist_kernels_main_path_shape(cuda):
+    """The main path's largest launch: V = 4096 candidates, NB = 128."""
+    TW, TWp, RW, NB, V = 34, 36, 48, 128, 4096
+    buf, meta = _k3_rows(11, TW, TWp, RW, NB, V, live=0.6, filled=0.4)
+    ref = _hold_k3(cuda, buf, meta, TW, TWp, RW, NB)
+    assert (ref < K3.INF).sum() > V * NB // 5

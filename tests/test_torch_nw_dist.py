@@ -176,3 +176,193 @@ def test_general_scorers_reject_unsupported_shapes():
     with pytest.raises(KernelError):  # int64 lengths
         K3.nw_dist_full(tpl, tl.long(), torch.zeros((V, N, 16), dtype=torch.uint8),
                         rls, T=T, global_ends=True)
+
+
+# ----------------------------------------------------------------------
+# K3/K3p's bit-vector design, modelled in numpy: the read as bit planes,
+# each template row one word step of Myers's algorithm (Hyyrö's
+# formulation with the top row anchored, D[i][0] = i) on ⌈RW/64⌉ uint64
+# words.  The model follows ``csrc/nw_dist.cu`` step by step, decode
+# included, and lies on no path of the package.
+
+_M32 = np.uint64(0xFFFFFFFF)
+
+
+def _codes16(packed, v, k):
+    """16 codes of packed rows ``v`` from code ``k`` on, code k in bits
+    31..30; codes past the row read as 0 (``codes16<true>``)."""
+    n_bytes = packed.shape[1]
+    b = k >> 2
+    x = np.zeros(k.shape, np.uint64)
+    for q in range(5):
+        idx = b + q
+        byte = np.where(idx < n_bytes, packed[v, np.minimum(idx, n_bytes - 1)], 0)
+        x = (x << np.uint64(8)) | byte.astype(np.uint64)
+    return (x >> (8 - 2 * (k & 3)).astype(np.uint64)) & _M32
+
+
+def _planes16(w):
+    """``planes16``: bit-reverse, then unshuffle, so bit j of the low half
+    is code j's high bit and bit j of the high half its low bit."""
+    x = np.zeros_like(w)
+    for j in range(32):  # __brev
+        x |= ((w >> np.uint64(j)) & np.uint64(1)) << np.uint64(31 - j)
+    for s, m in ((1, 0x22222222), (2, 0x0C0C0C0C), (4, 0x00F000F0),
+                 (8, 0x0000FF00)):
+        s, m = np.uint64(s), np.uint64(m)
+        t = (x ^ (x >> s)) & m
+        x = x ^ t ^ (t << s)
+    return x
+
+
+def _k3_model(packed, meta, TW, TWp, RW, NB):
+    """(2, V, NB) distances as K3p computes them, one slot per (v, nb)."""
+    V = meta.shape[0]
+    words = 1 if RW <= 64 else 2
+    u = lambda a: np.uint64(a)
+    v = np.repeat(np.arange(V), NB)
+    nb = np.tile(np.arange(NB), V)
+    rl = meta[v, 2 + nb].astype(np.int64)
+    hi = [np.zeros(V * NB, np.uint64) for _ in range(words)]
+    lo = [np.zeros(V * NB, np.uint64) for _ in range(words)]
+    for c in range(4 * words):  # only groups that start inside the read
+        x = np.where(16 * c < rl, _planes16(_codes16(packed, v, 2 * TWp + nb * RW
+                                                     + 16 * c)), u(0))
+        hi[c // 4] |= (x & u(0xFFFF)) << u(16 * (c % 4))
+        lo[c // 4] |= (x >> u(16)) << u(16 * (c % 4))
+    ones = u(0xFFFFFFFFFFFFFFFF)
+    out = np.full((2, V * NB), C._INF, np.int64)
+    for half in (0, 1):
+        tl = meta[v, half].astype(np.int64)
+        pv = [np.full(V * NB, ones) for _ in range(words)]
+        mv = [np.zeros(V * NB, np.uint64) for _ in range(words)]
+        for i in range(min(TW, max(int(tl.max()), 0))):
+            if i % 16 == 0:
+                w = _codes16(packed, v, half * TWp + i + 0 * v)
+            k = i % 16  # the code's bits, each spread over a word
+            b1 = np.where((w >> u(31 - 2 * k)) & u(1), ones, u(0))
+            b0 = np.where((w >> u(30 - 2 * k)) & u(1), ones, u(0))
+            live = i < tl
+            carry = np.zeros(V * NB, np.uint64)
+            ph_in, mh_in = np.ones(V * NB, np.uint64), np.zeros(V * NB, np.uint64)
+            for q in range(words):
+                eq = ~(hi[q] ^ b1) & ~(lo[q] ^ b0)
+                xv = eq | mv[q]
+                a = eq & pv[q]
+                s = a + pv[q]
+                c1 = (s < a).astype(np.uint64)
+                s2 = s + carry
+                carry = c1 | (s2 < s).astype(np.uint64)
+                xh = (s2 ^ pv[q]) | eq
+                ph = mv[q] | ~(xh | pv[q])
+                mh = pv[q] & xh
+                ph_s, ph_in = (ph << u(1)) | ph_in, ph >> u(63)
+                mh_s, mh_in = (mh << u(1)) | mh_in, mh >> u(63)
+                pv[q] = np.where(live, mh_s | ~(xv | ph_s), pv[q])
+                mv[q] = np.where(live, ph_s & xv, mv[q])
+        d = tl.copy()
+        for q in range(words):  # D[tl][rl] = tl + the read's vertical deltas
+            n = np.clip(rl - 64 * q, 0, 64)
+            mask = np.where(n >= 64, ones, (u(1) << n.astype(np.uint64)) - u(1))
+            d += (np.bitwise_count(pv[q] & mask).astype(np.int64)
+                  - np.bitwise_count(mv[q] & mask).astype(np.int64))
+        ok = (tl >= 1) & (tl <= TW) & (rl >= 0) & (rl <= RW)
+        out[half] = np.where(ok, np.where(rl == 0, tl, d), C._INF)
+    return out.reshape(2, V, NB).astype(np.int32)
+
+
+#: read lengths at the kernel's word edges (kept where RW allows)
+_EDGE_RLS = (0, 1, 47, 48, 63, 64, 65, 126, 127)
+
+
+def _k3_edge_rows(seed, TW, TWp, RW, NB, V):
+    """[base window | edited window | NB segments] rows and their meta at
+    K3's edges: window lengths 0, 1, TW, TW + 1 and -1 among ordinary
+    ones; read lengths on the word edges, RW, RW + 1 and -1; random,
+    homopolymer and tandem windows; reads that are noisy copies of the
+    window repeated to their length, homopolymers, tandem repeats or
+    random; random codes past every length."""
+    rng = np.random.default_rng(seed)
+    buf = rng.integers(0, 4, (V, 2 * TWp + NB * RW)).astype(np.uint8)
+    meta = np.zeros((V, 2 + NB), np.int32)
+    tls = [0, 1, TW, TW + 1, -1]
+    rls = [r for r in _EDGE_RLS if r < RW] + [RW, RW + 1, -1]
+    for v in range(V):
+        kind = v % 3
+        if kind == 0:
+            w = rng.integers(0, 4, TW).astype(np.uint8)
+        elif kind == 1:
+            w = np.full(TW, v % 4, np.uint8)
+        else:
+            w = np.resize(rng.integers(0, 4, int(rng.integers(2, 5))), TW).astype(np.uint8)
+        e = w.copy()
+        e[TW // 2] = (e[TW // 2] + 1) % 4
+        buf[v, :TW], buf[v, TWp : TWp + TW] = w, e
+        meta[v, :2] = [tls[(v + k) % 5] if v < 10 else int(rng.integers(1, TW + 1))
+                       for k in (0, 2)]
+        for nb in range(NB):
+            rl = rls[(v + nb) % len(rls)] if (v + nb) % 4 else int(rng.integers(0, RW + 1))
+            n = min(max(rl, 0), RW)
+            rk = (v + nb) % 4
+            if rk == 0:
+                r = _mutate(np.resize(w, n + 8), rng, 0.13)
+            elif rk == 1:
+                r = np.full(n, nb % 4, np.uint8)
+            elif rk == 2:
+                r = np.resize(w[:3], n)
+            else:
+                r = rng.integers(0, 4, n)
+            r = np.resize(np.asarray(r, np.uint8), n)
+            buf[v, 2 * TWp + nb * RW : 2 * TWp + nb * RW + n] = r
+            meta[v, 2 + nb] = rl
+    return buf, meta
+
+
+#: (TW, TWp, RW, NB): one word (RW ≤ 64) and two, the main path's shape,
+#: windows of 1 and 100 chars, and odd TWp and RW (rows whose windows and
+#: segments start inside a packed byte)
+_K3_SHAPES = [(1, 4, 48, 12), (34, 36, 48, 12), (34, 37, 63, 14),
+              (34, 36, 65, 12), (100, 101, 127, 14), (1, 1, 127, 2)]
+
+
+@pytest.mark.parametrize("TW,TWp,RW,NB", _K3_SHAPES)
+def test_k3_word_model_equals_jax(TW, TWp, RW, NB):
+    """The numpy model of K3/K3p's word step against
+    ``_nw_dist_pair_packed`` and ``_nw_dist_full(global_ends=True)`` on
+    the same rows, at the length edges (tolerance 0)."""
+    V = 15
+    buf, meta = _k3_edge_rows(TW * 1000 + RW, TW, TWp, RW, NB, V)
+    packed = _pack2bit(buf)
+    ref = np.asarray(C._nw_dist_pair_packed(jnp.asarray(packed),
+                                            jnp.asarray(meta), TW=TW, TWp=TWp,
+                                            RW=RW, NB=NB))
+    rw = buf[:, 2 * TWp :].reshape(V, NB, RW)
+    full = np.asarray(C._nw_dist_full(
+        jnp.asarray(np.concatenate([buf[:, :TW], buf[:, TWp : TWp + TW]])),
+        jnp.asarray(np.concatenate([meta[:, 0], meta[:, 1]])),
+        jnp.asarray(np.concatenate([rw, rw])),
+        jnp.asarray(np.concatenate([meta[:, 2:], meta[:, 2:]])), T=TW,
+        global_ends=True)).reshape(2, V, NB)
+    np.testing.assert_array_equal(full, ref)
+    assert (ref < C._INF).sum() > V * NB // 4 and (ref == C._INF).any()
+    np.testing.assert_array_equal(_k3_model(packed, meta, TW, TWp, RW, NB), ref)
+
+
+@pytest.mark.parametrize("TW,TWp,RW,NB", _K3_SHAPES)
+def test_nw_dist_pairs_edges_equal_jax(TW, TWp, RW, NB):
+    """The plain K3 and K3p against ``_nw_dist_pair_packed`` at windows
+    longer than TW, negative lengths, reads longer than RW and the word
+    edges; a CPU tensor launches neither kernel."""
+    V = 15
+    buf, meta = _k3_edge_rows(TW * 1000 + RW + 1, TW, TWp, RW, NB, V)
+    packed = _pack2bit(buf)
+    ref = np.asarray(C._nw_dist_pair_packed(jnp.asarray(packed),
+                                            jnp.asarray(meta), TW=TW, TWp=TWp,
+                                            RW=RW, NB=NB))
+    n0 = (K3.launches, K3.packed_launches)
+    got = K3.nw_dist_pairs(*_torch(buf, meta), TW=TW, TWp=TWp, RW=RW, NB=NB)
+    got_p = K3.nw_dist_pairs_packed(*_torch(packed, meta), TW=TW, TWp=TWp,
+                                    RW=RW, NB=NB)
+    assert (K3.launches, K3.packed_launches) == n0
+    np.testing.assert_array_equal(got.numpy(), ref)
+    np.testing.assert_array_equal(got_p.numpy(), ref)
