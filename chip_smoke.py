@@ -1,8 +1,16 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``dentist_tpu_torch``) once on one GPU.
 
-    python3 chip_smoke.py [--baseline-extend PATH] [--baseline-nw-round PATH]
-                          [--baseline-nw-dist PATH]
+    python3 chip_smoke.py [--baseline DIR]
+
+``--baseline DIR``: a directory holding another version's ``extend.cu``,
+``nw_round.cu``, ``nw_dist.cu`` and/or ``round_pack.cu``, with its
+``pack2.cuh`` beside them (``git show <rev>:dentist_tpu_torch/csrc/<file>``
+into an ignored directory of the repo).  Each source it holds is built
+with the package's flags, one ``nvcc`` each, all started together, and
+phase 3 checks that version's kernels equal to this one's and times them
+beside this one's in the same process, in turns (baseline, kernel,
+kernel, baseline): K1 and K1p, K2p and K2r, K3p, K4 and K4w.
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -23,25 +31,28 @@ Phases (any failure exits non-zero and prints no result line):
    whichever is larger; K3 and K3p count 11 operations of their word
    step per template row and 32 read columns).  K1 and K1p run after phase 5, at every (R, N)
    bucket pair it launched K1 at and at (1512, 128) and (13608, 1024),
-   with their ratio to the bound; ``--baseline-extend PATH`` builds
-   another version's ``csrc/extend.cu`` and times its K1 and K1p beside
-   this one's at those two pairs, on the same inputs, in turns.  K2, K2p
+   with their ratio to the bound (with ``--baseline``, the other K1 and
+   K1p at those two pairs, on the same inputs).  K2, K2p
    and K2r also run after phase 5, at every (T, RL, N) bucket it
    launched K2p or K2r at, with as many live lanes as those launches held
    on average, with their ratio to the bound; K2p at the largest of them
    runs with S = 0 (the forward scan alone) beside the full S (scan and
-   traceback); ``--baseline-nw-round PATH`` builds another version's
-   ``csrc/nw_round.cu`` and times its K2p there (both S) and its K2r at
-   the largest K2r bucket beside this one's, in turns, after checking
-   equal outputs.  K3 and K3p also run after phase 5, at every (V, NB)
+   traceback); with ``--baseline``, the other K2p there (both S) and K2r
+   at the largest K2r bucket, after checking equal outputs.  K3 and K3p
+   also run after phase 5, at every (V, NB)
    bucket it launched K3p at, with as many live candidates and filled
    read slots as those launches held on average and lengths drawn from
    theirs (the case's word rows and cells within 15 % of theirs), with
-   their ratio to the bound and their DP cell rate; ``--baseline-nw-dist PATH`` builds
-   another version's ``csrc/nw_dist.cu``, checks its K3 and K3p equal to
-   this one's, and times its K3p beside this one's at the largest bucket
-   and at V = 256, NB = 8, in turns.  K3 is timed through its wrapper
-   as every kernel is, and besides by device time, its launches queued
+   their ratio to the bound and their DP cell rate; with ``--baseline``,
+   the other K3 and K3p checked equal to these and its K3p timed beside
+   this one's at the largest bucket and at V = 256, NB = 8.  K4 and K4w
+   also run after phase 5, at every bucket it launched them at (mode, T,
+   N, sparse or dense, resident or host windows), on the first such
+   launch's own inputs, cloned there (a resident launch's template
+   windows cut into a store of their own); with ``--baseline``, the
+   other K4 or K4w checked equal word for word and timed beside this
+   one's there.  K3, K3p, K4 and K4w are timed through their wrappers
+   as every kernel is, and besides by device time, their launches queued
    behind a sleep kernel (a launch through the wrapper takes longer on
    the host than the kernel on the card); the turns use device time.
 4. Main path, small: the 60 kb / 3-gap scenario of ``tests/test_e2e.py``
@@ -54,8 +65,8 @@ Phases (any failure exits non-zero and prints no result line):
    launched (K1's (R, N, live lanes) are recorded per launch through a
    wrapper around ``banded.extend``, K2p's and K2r's (T, RL, N, live
    lanes) through wrappers around the names ``ops/consensus.py`` calls
-   them by, and K3p's (V, NB, live candidates, filled slots) the
-   same way), the gaps closed (byte-exact against
+   them by, K3p's (V, NB, live candidates, filled slots) and K4's and
+   K4w's (T, N, sparse, resident, live lanes) the same way), the gaps closed (byte-exact against
    the simulated truth) must be at least as many as the JAX package
    closes, and the FASTA, AGP and BED must hash to the JAX package's
    outputs.
@@ -63,7 +74,7 @@ Phases (any failure exits non-zero and prints no result line):
    last under ``torch.profiler``, then one with
    ``DENTIST_TPU_DENSE_CONS=1``; each must hash as phase 5's did.
    Prints each run's wall seconds, the device's busy share of the
-   profiled run, by kernel and copy, the host seconds of its 2-bit
+   profiled run, by kernel and copy (every one), the host seconds of its 2-bit
    packing, and the consensus host sections (window building, block
    decoding, stitching) and fetch bytes of the last default call and
    of the dense call.
@@ -104,7 +115,9 @@ Phases (any failure exits non-zero and prints no result line):
 The last lines of standard output are the card's ``nvidia-smi`` line,
 the kernels' JSON record and ``{"ok": true, "device": {...}}``.  The
 record has one entry per kernel mode that a path runs, with that mode's
-launches in the run that drives it and its times and bound from phase 3:
+launches in the run that drives it and its times and bound from phase 3
+(K4's and K4w's from each mode's largest phase-5 bucket, or phase 3's
+fixed cases for a mode phase 5 did not launch):
 K1, K2p, K2r, K3p, K4 and K4w sparse, K5 on the main path (phase 5), K1p
 in phase 7, K4 and K4w dense in phase 9.  K2 and K3 run only in their
 2-bit modes; their unpacked modes are the oracles phase 3 holds K2p and
@@ -121,6 +134,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -374,7 +388,7 @@ def ptxas_lines(text: str) -> list:
 
     out, name = [], None
     for line in text.splitlines():
-        m = re.search(r"Function properties for \S*?[a-z](?:\d+)([a-z_]+_kernel)(?:I(\w*?)EE)?v", line)
+        m = re.search(r"Function properties for \S*?[a-z](?:\d+)([a-z_]+_kernel)(?:I(\w*?)EEv|E)", line)
         if m:
             args = re.findall(r"L[ib](\d+)E", m.group(2) or "")
             name = m.group(1) + (f"<{', '.join(args)}>" if args else "")
@@ -858,14 +872,7 @@ def phase_kernels():
     k5 = hold(f"K5 store_write n={n}", k5_kernel, k5_plain, 10,
               bound(n // 4 + n, OPS_PER_CELL["K5"] * n))
 
-    rows.append(("K4 round_pack sparse", "dentist_tpu_torch/csrc/round_pack.cu",
-                 "dentist_tpu/ops/consensus.py:397", "main", "K4", k4s))
-    rows.append(("K4 round_pack dense", "dentist_tpu_torch/csrc/round_pack.cu",
-                 "dentist_tpu/ops/consensus.py:318", "dense", "K4dense", k4d))
-    rows.append(("K4w window_pack sparse", "dentist_tpu_torch/csrc/round_pack.cu",
-                 "dentist_tpu/ops/consensus.py:1023", "main", "K4w", k4ws))
-    rows.append(("K4w window_pack dense", "dentist_tpu_torch/csrc/round_pack.cu",
-                 "dentist_tpu/ops/consensus.py:914", "dense", "K4wdense", k4wd))
+    k4_fixed = {"K4": k4s, "K4dense": k4d, "K4w": k4ws, "K4wdense": k4wd}
     rows.append(("K5 store_write", "dentist_tpu_torch/csrc/store_write.cu",
                  "dentist_tpu/ops/banded.py:448", "main", "K5", k5))
 
@@ -923,7 +930,7 @@ def phase_kernels():
                  "dentist_tpu/ops/consensus.py:1936", "phase3", "K3f", k3f))
     rows.append(("K3b banded_nw_dist", "dentist_tpu_torch/csrc/nw_dist.cu",
                  "dentist_tpu/ops/consensus.py:1991", "phase3", "K3b", k3b))
-    return rows, phase3
+    return rows, phase3, k4_fixed
 
 
 #: the K1 shapes whose parent kernel ``--baseline-extend`` times, and
@@ -931,43 +938,62 @@ def phase_kernels():
 K1_LEGACY = ((1512, 128), (13608, 1024))
 
 
-#: the C entry points a baseline source exports: (pointers, ints) before
-#: the stream argument
-EXTEND_ENTRIES = {"dentist_extend": (4, 5), "dentist_extend_packed": (4, 4)}
-NW_ROUND_ENTRIES = {"dentist_nw_round": (13, 8),
+#: the C entry points of each kernel source a ``--baseline`` directory may
+#: hold: (pointers, ints) before the stream argument
+BASELINE_ENTRIES = {
+    "extend.cu": {"dentist_extend": (4, 5), "dentist_extend_packed": (4, 4)},
+    "nw_round.cu": {"dentist_nw_round": (13, 8),
                     "dentist_nw_round_packed": (11, 8),
-                    "dentist_nw_round_resident": (11, 9)}
-NW_DIST_ENTRIES = {"dentist_nw_dist": (3, 5), "dentist_nw_dist_packed": (3, 5)}
+                    "dentist_nw_round_resident": (11, 9)},
+    "nw_dist.cu": {"dentist_nw_dist": (3, 5), "dentist_nw_dist_packed": (3, 5)},
+    "round_pack.cu": {"dentist_round_pack": (10, 6),
+                      "dentist_window_pack": (7, 6)},
+}
 
 
-def build_baseline(path: str, entries: dict):
-    """The kernels of ``path`` (a ``csrc/*.cu`` of another version, with
-    its ``pack2.cuh`` beside it), built with the package's flags into a
-    temporary directory; its ``entries`` by name."""
+def build_baselines(path) -> dict:
+    """The kernels of another version: each source of ``BASELINE_ENTRIES``
+    that the directory ``path`` holds (with its ``pack2.cuh`` beside
+    them), built with the package's flags into a temporary directory,
+    one ``nvcc`` per source, all started together; returns {source:
+    {entry point: function}}, empty without ``path``."""
     import ctypes
     import shutil
 
     from dentist_tpu_torch import _build
 
+    if not path:
+        return {}
+    srcs = [f for f in BASELINE_ENTRIES if os.path.exists(os.path.join(path, f))]
+    if not srcs:
+        fail(f"--baseline {path} holds none of {', '.join(BASELINE_ENTRIES)}")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_baseline_")
     try:
-        so = os.path.join(tmp, "libbaseline.so")
-        proc = subprocess.run([_build._nvcc(), *_build._FLAGS, "-shared", "-o", so,
-                               path], capture_output=True, text=True)
-        if proc.returncode:
-            fail(f"baseline {path} did not build:\n{proc.stdout}{proc.stderr}")
-        for line in ptxas_lines(proc.stdout + proc.stderr):
-            log(f"  baseline {line}")
-        lib = ctypes.CDLL(so)
+        sos = {f: os.path.join(tmp, f"lib{f[:-3]}.so") for f in srcs}
+        procs = {f: subprocess.Popen(
+            [_build._nvcc(), *_build._FLAGS, "-shared", "-o", sos[f],
+             os.path.join(path, f)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for f in srcs}
+        libs = {}
+        for f, proc in procs.items():
+            out = proc.communicate()[0]
+            if proc.returncode:
+                fail(f"baseline {f} did not build:\n{out}")
+            for line in ptxas_lines(out):
+                log(f"  baseline {f}: {line}")
+            libs[f] = ctypes.CDLL(sos[f])
     finally:
         shutil.rmtree(tmp)
     fns = {}
-    for name, (n_ptr, n_int) in entries.items():
-        fn = getattr(lib, name)
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        fns[name] = fn
+    for f, lib in libs.items():
+        fns[f] = {}
+        for name, (n_ptr, n_int) in BASELINE_ENTRIES[f].items():
+            fn = getattr(lib, name)
+            fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                           + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            fns[f][name] = fn
+    log(f"baseline {path}: built {', '.join(srcs)}")
     return fns
 
 
@@ -975,7 +1001,7 @@ def phase_k1(buckets: dict, baseline) -> list:
     """Phase 3 for K1 and K1p, after phase 5: each against its plain
     version at every (R, N) bucket pair the main path launched (and at
     ``K1_LEGACY``), with its time, bound and their ratio; with
-    ``baseline`` (:func:`build_baseline`), the other version's kernel
+    ``baseline`` (:func:`build_baselines`' ``extend.cu``), the other version's kernel
     timed beside this one at ``K1_LEGACY`` on the same inputs, in turns
     (baseline, kernel, kernel, baseline)."""
     import torch
@@ -1024,7 +1050,7 @@ def phase_k1(buckets: dict, baseline) -> list:
                     out.data_ptr(), N, R, 256, BW, stream())
                 compare("K1p", R, N, kernel, old, out, st)
     if not baseline:
-        log("  no --baseline-extend given: no other K1 version timed")
+        log("  no extend.cu in --baseline: no other K1 version timed")
     return [("K1 extend", "dentist_tpu_torch/csrc/extend.cu",
              "dentist_tpu/ops/banded.py:62", "main", "K1", k1),
             ("K1p extend_packed", "dentist_tpu_torch/csrc/extend.cu",
@@ -1097,7 +1123,8 @@ def phase_k2(k2_buckets: dict, baseline) -> list:
     as many live lanes as the launches held on average, with its time,
     bound and their ratio.  K2p at the largest of them runs again with
     S = 0 (the forward scan alone) beside the full S (scan and
-    traceback).  With ``baseline`` (:func:`build_baseline`), the other
+    traceback).  With ``baseline`` (:func:`build_baselines`'
+    ``nw_round.cu``), the other
     version's K2p there and its K2r at the largest K2r bucket are checked
     equal and timed beside these, in turns."""
     import torch
@@ -1188,7 +1215,7 @@ def phase_k2(k2_buckets: dict, baseline) -> list:
         ms = [cuda_ms(kernel(S), 3) for S in (T + RL, 0)]
         log(f"  K2p T={T} N={N} live={live}: S={T + RL} {ms[0]:.3f} ms, S=0 "
             f"{ms[1]:.3f} ms (traceback {ms[0] - ms[1]:.3f} ms); no "
-            f"--baseline-nw-round given: no other K2 version timed")
+            f"nw_round.cu in --baseline: no other K2 version timed")
     src = "dentist_tpu_torch/csrc/nw_round.cu"
     return [("K2p nw_round_packed", src, "dentist_tpu/ops/consensus.py:491",
              "main", "K2p", k2p),
@@ -1204,7 +1231,7 @@ def phase_k3(k3_buckets: dict, baseline) -> list:
     (:func:`k3_case`), with its time, bound, their ratio and its cell
     rate.  Each case's word rows and cells must be within
     ``K3_CASE_MARGIN`` of the launches' average.  With ``baseline``
-    (:func:`build_baseline`), the other version's K3 and K3p are checked
+    (:func:`build_baselines`' ``nw_dist.cu``), the other version's K3 and K3p are checked
     equal to these at the largest bucket and at V = 256, NB = 8, and its
     K3p is timed beside this one's there, in turns, by device time
     (:func:`cuda_ms_queued`)."""
@@ -1234,7 +1261,7 @@ def phase_k3(k3_buckets: dict, baseline) -> list:
         k3p = merge(k3p, st)
         cases[V, NB] = (b, p, m, TW, TWp, RW, st)
     if not baseline:
-        log("  no --baseline-nw-dist given: no other K3 version timed")
+        log("  no nw_dist.cu in --baseline: no other K3 version timed")
         return [("K3p nw_dist_packed", "dentist_tpu_torch/csrc/nw_dist.cu",
                  "dentist_tpu/ops/consensus.py:2065", "main", "K3p", k3p)]
     if (256, 8) not in cases:  # the phase-3 shape, every slot filled
@@ -1263,6 +1290,101 @@ def phase_k3(k3_buckets: dict, baseline) -> list:
               calls["dentist_nw_dist_packed"], 20, cuda_ms_queued)
     return [("K3p nw_dist_packed", "dentist_tpu_torch/csrc/nw_dist.cu",
              "dentist_tpu/ops/consensus.py:2065", "main", "K3p", k3p)]
+
+
+def k4_what(key) -> str:
+    """A K4 or K4w bucket (mode, T, N, sparse, resident) in words."""
+    mode, T, N, sparse, resident = key
+    kind = "sparse" if sparse else "dense"
+    if mode == "K4w":
+        kind += " resident" if resident else " host windows"
+    return f"{mode} {kind} (T={T}, N={N})"
+
+
+#: the ``kernels`` line's K4 and K4w rows: (name, replaces, run, mode),
+#: each taking its largest main-path bucket (by T x N) from phase_k4
+K4_ROWS = (("K4 round_pack sparse", "dentist_tpu/ops/consensus.py:397", "main", "K4"),
+           ("K4 round_pack dense", "dentist_tpu/ops/consensus.py:318", "dense", "K4dense"),
+           ("K4w window_pack sparse", "dentist_tpu/ops/consensus.py:1023", "main", "K4w"),
+           ("K4w window_pack dense", "dentist_tpu/ops/consensus.py:914", "dense", "K4wdense"))
+
+
+def phase_k4(k4_buckets: dict, baseline, fixed: dict) -> list:
+    """Phase 3 for K4 and K4w, after phase 5: at every bucket the main path
+    launched them at, on the first such launch's own inputs (cloned in
+    phase 5), each against its plain version (tolerance 0), with its time
+    through the wrapper (back to back, as every kernel is timed), its
+    device time with the launches queued (:func:`cuda_ms_queued`), its
+    bound and both ratios.  With ``baseline`` (:func:`build_baselines`'
+    ``round_pack.cu``), the other version's kernel is checked equal word
+    for word and timed beside this one in turns, by device time.  Each
+    mode's row takes its largest bucket; a mode that phase 5 did not
+    launch keeps phase 3's fixed cases (``fixed``)."""
+    import torch
+
+    from dentist_tpu_torch.ops import round_pack as RP
+
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    best = {}
+    for key in sorted(k4_buckets):
+        mode, T, N, sparse, resident = key
+        rec = k4_buckets[key]
+        if mode == "K4":
+            chars, fields, cen, RL, NWIN = rec["inputs"]
+            words = RP.sparse_words(T, NWIN) if sparse else RP.dense_words(T, NWIN)
+            kernel = lambda: RP.round_pack(chars, fields, cen, T, RL, NWIN, sparse)
+            plain = lambda: RP.round_pack_reference(chars, fields, cen, T, RL,
+                                                    NWIN, sparse)
+            work = k4_work(N, T, NWIN, N * (T // 4 if sparse else 4 * (T + 1)),
+                           words)
+            old = lambda out: baseline["dentist_round_pack"](
+                chars.data_ptr(), *(f.data_ptr() for f in fields), cen.data_ptr(),
+                out.data_ptr(), N, T, RL, NWIN, words, int(sparse), stream())
+        else:
+            tsrc, meta, fields, cen = rec["inputs"]
+            words = 42 if sparse else 112
+            kernel = lambda: RP.window_pack(tsrc, meta, fields, cen, sparse,
+                                            resident)
+            plain = lambda: RP.window_pack_reference(tsrc, meta, fields, cen,
+                                                     sparse, resident)
+            work = k4_work(N, 126, 0, N * ((126 if resident else 32) if sparse
+                                           else 4 * 127), words)
+            old = lambda out: baseline["dentist_window_pack"](
+                tsrc.data_ptr(), meta.data_ptr(), *(f.data_ptr() for f in fields),
+                cen.data_ptr(), out.data_ptr(), int(resident), int(sparse),
+                tsrc.numel() if resident else 0, N, T, 384, stream())
+        what = (f"{k4_what(key)}, {rec['launches']} launches with "
+                f"{rec['live'] / rec['launches']:.0f} live lanes a launch")
+        st = hold(what, kernel, plain, 20, work)
+        st["device_ms"] = cuda_ms_queued(kernel, 20)
+        log(f"  device {st['device_ms']:.4f} ms (launches queued), "
+            f"{st['device_ms'] / st['bound_ms']:.1f}x the bound; through the "
+            f"wrapper {st['ms'] / st['bound_ms']:.1f}x")
+        if baseline:
+            out = torch.empty_like(st["out"])
+            status = []
+            parent = lambda: status.append(old(out))
+            parent()
+            torch.cuda.synchronize()
+            if any(status) or max_abs_err(out, st["out"]):
+                fail(f"{k4_what(key)}: the baseline's block != the kernel's "
+                     f"(status {set(status)})")
+            log("  the baseline's block equal to the kernel's, word for word")
+            turns(f"{k4_what(key)} (device time, launches queued):", kernel,
+                  parent, 20, cuda_ms_queued)
+            if any(status):
+                fail(f"{k4_what(key)}: a baseline launch failed")
+        row = mode + ("" if sparse else "dense")
+        if row not in best or T * N > best[row][0]:
+            best[row] = (T * N, st)
+    if not baseline:
+        log("  no round_pack.cu in --baseline: no other K4 version timed")
+    for _, _, _, row in K4_ROWS:
+        if row not in best:
+            log(f"  {row}: not launched in phase 5; its row keeps phase 3's cases")
+    return [(name, "dentist_tpu_torch/csrc/round_pack.cu", rep, run, row,
+             best[row][1] if row in best else fixed[row])
+            for name, rep, run, row in K4_ROWS]
 
 
 # ----------------------------------------------------------------------
@@ -1329,15 +1451,54 @@ def phase_a(tmp: str) -> dict:
         return extend(store, meta12, num_k, R, W)
 
     # each K2p and K2r launch's (T, RL, N, live lanes: a template and a
-    # read), through wrappers around the names consensus calls them by
+    # read), through wrappers around the names consensus calls them by;
+    # a thread's last live count goes to the K4 or K4w launch that packs
+    # the round's fields (the same thread, next)
     k2_shapes = []
+    tls = threading.local()
 
     def k2_recorder(mode, fn):
         def recorded_k2(src, meta, **kw):
             live = int(((meta[0] > 0) & (meta[1] > 0)).sum())
             k2_shapes.append((mode, kw["T"], kw["RL"], meta.shape[1], live))
+            tls.live = live
             return fn(src, meta, **kw)
         return recorded_k2
+
+    # each K4 and K4w launch's bucket (mode, T, N, sparse, resident) and
+    # live lanes, and the first launch of each bucket's inputs, cloned
+    # (a resident launch's template windows are cut from the store into
+    # a store of their own, their offsets moved with them)
+    k4_shapes, k4_inputs = [], {}
+    k4_lock = threading.Lock()
+    k4_fns = (consensus.round_pack, consensus.window_pack)
+
+    def k4_record(key, inputs):
+        with k4_lock:
+            k4_shapes.append((key, getattr(tls, "live", 0)))
+            if key not in k4_inputs:
+                k4_inputs[key] = inputs()
+
+    def recorded_k4(chars, fields, centers, T, RL, NWIN, sparse):
+        k4_record(("K4", T, fields[0].shape[0], bool(sparse), False),
+                  lambda: (chars.clone(), tuple(f.clone() for f in fields),
+                           centers.clone(), RL, NWIN))
+        return k4_fns[0](chars, fields, centers, T, RL, NWIN, sparse=sparse)
+
+    def recorded_k4w(tsrc, meta, fields, centers, sparse, resident):
+        def inputs():
+            if not resident:
+                return tsrc.clone(), meta.clone(), tuple(f.clone() for f in fields), centers.clone()
+            N, T = meta.shape[1], fields[0].shape[1]
+            start = meta[3].long().clamp(0, tsrc.numel() - T)
+            store = tsrc[start[:, None] + torch.arange(T, device=tsrc.device)]
+            moved = meta.clone()
+            moved[3] = torch.arange(N, dtype=torch.int32, device=meta.device) * T
+            return (store.reshape(-1).contiguous(), moved,
+                    tuple(f.clone() for f in fields), centers.clone())
+        k4_record(("K4w", fields[0].shape[1], fields[0].shape[0], bool(sparse),
+                   bool(resident)), inputs)
+        return k4_fns[1](tsrc, meta, fields, centers, sparse, resident=resident)
 
     k2_fns = (consensus.nw_round_packed, consensus.nw_round_resident)
     # each K3p launch's (V, NB, TW, TWp, RW) and what its inputs need
@@ -1354,6 +1515,7 @@ def phase_a(tmp: str) -> dict:
     consensus.nw_round_packed = k2_recorder("K2p", k2_fns[0])
     consensus.nw_round_resident = k2_recorder("K2r", k2_fns[1])
     consensus.nw_dist_pairs_packed = recorded_k3
+    consensus.round_pack, consensus.window_pack = recorded_k4, recorded_k4w
     reset_launch_counts()
     try:
         result, out, wall = run_phase_a(d, asm, reads, "")
@@ -1361,6 +1523,7 @@ def phase_a(tmp: str) -> dict:
         banded.extend = extend
         consensus.nw_round_packed, consensus.nw_round_resident = k2_fns
         consensus.nw_dist_pairs_packed = k3_fn
+        consensus.round_pack, consensus.window_pack = k4_fns
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     n_pileups = None
@@ -1405,6 +1568,15 @@ def phase_a(tmp: str) -> dict:
         f"(32-bit), mean lengths {(np.arange(len(r['tl_hist'])) * r['tl_hist']).sum() / max(1, r['live']):.2f} "
         f"(base windows), {(np.arange(len(r['rl_hist'])) * r['rl_hist']).sum() / max(1, r['filled']):.2f} (reads)"
         for key, r in sorted(k3_buckets.items())))
+    k4_buckets: dict = {}
+    for key, live in k4_shapes:
+        rec = k4_buckets.setdefault(key, {"launches": 0, "live": 0,
+                                          "inputs": k4_inputs[key]})
+        rec["launches"] += 1
+        rec["live"] += live
+    log("  K4 and K4w launches by (T, N): " + "; ".join(
+        f"{k4_what(key)} x{r['launches']}, {r['live']} live lanes"
+        for key, r in sorted(k4_buckets.items())))
     for name, want in PHASE_A_SHA256.items():
         got = sha256(os.path.join(d, name))
         if got != want:
@@ -1420,7 +1592,7 @@ def phase_a(tmp: str) -> dict:
         fail(f"closed {result.n_closed_gaps} gaps, JAX closes {PHASE_A_JAX_CLOSED}")
     if exact < PHASE_A_JAX_EXACT:
         fail(f"{exact} gaps closed byte-exact, JAX closes {PHASE_A_JAX_EXACT}")
-    return launches, sc, buckets, k2_buckets, k3_buckets
+    return launches, sc, buckets, k2_buckets, k3_buckets, k4_buckets
 
 
 def consensus_sections(sections: dict) -> dict:
@@ -1498,8 +1670,8 @@ def phase_profile(tmp: str, calls: int) -> None:
         f"{json.dumps([round(w, 3) for w in walls])}; the last under torch.profiler")
     log(f"  device busy {busy_us / 1e3:.1f} ms of {walls[-1]:.3f} s "
         f"({100 * busy_us / 1e6 / walls[-1]:.2f} %)")
-    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
-        log(f"  {us / 1e3:10.2f} ms {n:6d}x  {name[:90]}")
+    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]):
+        log(f"  {us / 1e3:10.3f} ms {n:6d}x  {name[:90]}")
     log(f"  host 2-bit packing in the profiled run: {pack_ms:.1f} ms "
         f"over {pack_calls} calls")
     log(f"consensus sections [s, hits, bytes], default transport "
@@ -1760,16 +1932,11 @@ def main() -> None:
     import argparse
 
     ap = argparse.ArgumentParser(description="Drive the port once on one GPU.")
-    ap.add_argument("--baseline-extend", metavar="PATH",
-                    help="another version's csrc/extend.cu (pack2.cuh beside "
-                         "it): phase 3 times its K1 and K1p beside this one's")
-    ap.add_argument("--baseline-nw-round", metavar="PATH",
-                    help="another version's csrc/nw_round.cu (pack2.cuh "
-                         "beside it): phase 3 times its K2p and K2r beside "
-                         "this one's")
-    ap.add_argument("--baseline-nw-dist", metavar="PATH",
-                    help="another version's csrc/nw_dist.cu (pack2.cuh "
-                         "beside it): phase 3 times its K3p beside this one's")
+    ap.add_argument("--baseline", metavar="DIR",
+                    help="a directory holding another version's extend.cu, "
+                         "nw_round.cu, nw_dist.cu and/or round_pack.cu with "
+                         "its pack2.cuh: phase 3 times each one's kernels "
+                         "beside this version's, in the same process")
     args = ap.parse_args()
     try:
         import torch
@@ -1809,23 +1976,21 @@ def main() -> None:
     k3_sass_step(_build.library()._name)
 
     # 3. kernels against their plain versions (K1 and K1p after phase 5)
-    rows, phase3 = phase_kernels()
-    baseline = (build_baseline(args.baseline_extend, EXTEND_ENTRIES)
-                if args.baseline_extend else None)
-    baseline_k2 = (build_baseline(args.baseline_nw_round, NW_ROUND_ENTRIES)
-                   if args.baseline_nw_round else None)
-    baseline_k3 = (build_baseline(args.baseline_nw_dist, NW_DIST_ENTRIES)
-                   if args.baseline_nw_dist else None)
+    rows, phase3, k4_fixed = phase_kernels()
+    baselines = build_baselines(args.baseline)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         # 4. main path, small, against the JAX package's hashes
         phase_e2e(tmp)
         # 5. main path at real size
-        launches, sc, buckets, k2_buckets, k3_buckets = phase_a(tmp)
-        # 3, K1, K1p, K2, K2p, K2r, K3 and K3p: at the buckets phase 5
-        # launched
-        rows = (phase_k1(buckets, baseline) + phase_k2(k2_buckets, baseline_k2)
-                + phase_k3(k3_buckets, baseline_k3) + rows)
+        launches, sc, buckets, k2_buckets, k3_buckets, k4_buckets = phase_a(tmp)
+        # 3, K1, K1p, K2, K2p, K2r, K3, K3p, K4 and K4w: at the buckets
+        # phase 5 launched
+        rows = (phase_k1(buckets, baselines.get("extend.cu"))
+                + phase_k2(k2_buckets, baselines.get("nw_round.cu"))
+                + phase_k3(k3_buckets, baselines.get("nw_dist.cu"))
+                + phase_k4(k4_buckets, baselines.get("round_pack.cu"), k4_fixed)
+                + rows)
         # 6. where the time goes in later calls
         phase_profile(tmp, PROFILE_CALLS)
         # 7. host-window path on the card

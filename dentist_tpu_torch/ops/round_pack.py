@@ -86,6 +86,16 @@ def dense_words(T: int, NWIN: int) -> int:
 # ======================================================================
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """An int8 field contiguous and 8-byte aligned: the kernels read a
+    boundary's four ins bytes as one 32-bit word and (K4 dense) eight sym
+    bytes as one 8-byte word, from row offsets that are aligned when the
+    tensor's start is (a view that starts inside an allocation is
+    copied)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 8 == 0 else t.clone()
+
+
 def _check_fields(fields, N, T, NWIN, dev):
     sym, ins, jpath, spans, diffs, win, covered = fields
     want = ((sym, (N, T), torch.int8), (ins, (N, T + 1, 4), torch.int8),
@@ -126,7 +136,8 @@ def round_pack(chars, fields, centers, T: int, RL: int, NWIN: int,
     words = sparse_words(T, NWIN) if sparse else dense_words(T, NWIN)
     out = torch.empty((N, words), dtype=torch.int32, device=dev)
     if N:
-        args = [t.contiguous() for t in (chars, *fields, centers)]
+        args = [chars.contiguous(), *map(_aligned, fields[:2]),
+                *(t.contiguous() for t in (*fields[2:], centers))]
         fn = _build.kernel_fn("dentist_round_pack", 10, 6)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
@@ -300,7 +311,8 @@ def window_pack(tsrc, meta, fields, centers, sparse: bool,
     out = torch.empty((N, _WROW_SPARSE if sparse else _WROW),
                       dtype=torch.int32, device=dev)
     if N:
-        args = [t.contiguous() for t in (tsrc, meta, sym, ins, jpath, centers)]
+        args = [tsrc.contiguous(), meta.contiguous(), _aligned(sym),
+                _aligned(ins), jpath.contiguous(), centers.contiguous()]
         fn = _build.kernel_fn("dentist_window_pack", 7, 6)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream

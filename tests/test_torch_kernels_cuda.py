@@ -579,3 +579,149 @@ def test_nw_dist_kernels_main_path_shape(cuda):
     buf, meta = _k3_rows(11, TW, TWp, RW, NB, V, live=0.6, filled=0.4)
     ref = _hold_k3(cuda, buf, meta, TW, TWp, RW, NB)
     assert (ref < K3.INF).sum() > V * NB // 5
+
+
+# K4 and K4w at the main path's buckets: (T, N) of the full rounds' K4
+# launches (phase 5 of chip_smoke.py, 3 Mb; the sparse K4 spreads (6144,
+# 32) and (8192, 32) over clusters of 3 and 4 CTAs), T = 256, T = 12288
+# (a cluster of 6), T = 16384, whose dense row (74 KB) is past the 48 KB
+# of shared memory a block gets without an opt-in (a cluster of 8), and T
+# = 32768 in a cluster of 8 and, at N = 32, in one CTA of 8 tiles; the
+# windowed rows at the lane ladder's N
+_K4_BUCKETS = [(256, 32), (2048, 32), (2048, 128), (3072, 128), (4096, 128),
+               (6144, 32), (6144, 128), (8192, 32), (12288, 16), (16384, 8),
+               (32768, 4), (32768, 32)]
+_K4W_NS = [32, 128, 512, 2048]
+
+
+def _k4_fields(seed, T, N, live):
+    """Crafted round fields on the card.  ``live`` "all": every lane a
+    covered lane at ~13 % events, and lanes 1, 2, 3 (mod 4) over the
+    divergence, insertion and escape caps; "one": lane 0 alone, the rest
+    padding as the round leaves it (sym 5, jpath -1, uncovered); and
+    "uncovered": every lane's span set, none covered, with insertions
+    (which are not masked by coverage)."""
+    rng = np.random.default_rng(seed)
+    NWIN = -(-T // 126)
+    tpl = rng.integers(0, 4, (N, T)).astype(np.int8)
+    p = np.full((N, 1), 0.13)
+    if live == "all":
+        p[1::4] = 0.5
+    sym = np.where(rng.random((N, T)) < p, rng.integers(0, 5, (N, T)),
+                   tpl).astype(np.int8)
+    pi = np.full((N, 1, 1), 0.05)
+    if live == "all":
+        pi[2::4] = 0.35
+    ins = np.where(rng.random((N, T + 1, 1)) < pi,
+                   rng.integers(0, 5, (N, T + 1, 4)), 0).astype(np.int8)
+    steps = rng.choice([0, 1, 2, 3], (N, T), p=[0.05, 0.8, 0.1, 0.05])
+    if live == "all":
+        steps[3::4, :: T // 40] = 40
+    steps[0, :17] = [15, 14] * 8 + [15]  # deltas 15 (escapes) and 14
+    jpath = np.concatenate([rng.integers(0, 99, (N, 1)), steps], 1).cumsum(1)
+    s0 = rng.integers(0, T // 8, N)
+    s1 = T - rng.integers(0, T // 8, N)
+    s0[0], s1[0] = 0, T
+    covered = np.full(N, live != "uncovered")
+    if live == "one":
+        covered[1:] = False
+    col = np.arange(T + 1)[None, :]
+    in_span = (col >= s0[:, None]) & (col <= s1[:, None]) & covered[:, None]
+    sym = np.where(in_span[:, :T], sym, 5).astype(np.int8)
+    jpath = np.where(in_span, jpath, -1).astype(np.int32)
+    if live == "one":
+        ins[1:] = 0
+    spans = np.stack([s0, s1], 1).astype(np.int32)
+    spans[~covered] = 0 if live == "one" else spans[~covered]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+    chars = np.concatenate([pack2bit(tpl.astype(np.uint8)),
+                            rng.integers(0, 256, (N, 3 * T // 4)).astype(np.uint8)], 1)
+    fields = tuple(t(a) for a in (sym, ins, jpath, spans,
+                                  rng.integers(0, 999, N).astype(np.int32),
+                                  rng.integers(0, 9, (N, NWIN)).astype(np.int32),
+                                  covered))
+    cen = t((jpath + rng.integers(-60, 60, jpath.shape)).astype(np.int32))
+    return t(chars), fields, cen, NWIN
+
+
+@pytest.mark.parametrize("live", ["all", "one", "uncovered"])
+@pytest.mark.parametrize("T,N", _K4_BUCKETS)
+def test_round_pack_kernel_at_buckets(cuda, T, N, live):
+    """K4, sparse and dense, equal to its plain version at every main-path
+    bucket; in the "all" case every lane of 1, 2, 3 (mod 4) is over its
+    cap and flagged."""
+    chars, fields, cen, NWIN = _k4_fields(T * 7 + N, T, N, live)
+    for sparse in (True, False):
+        n0 = (K4.sparse_launches, K4.dense_launches)
+        got = K4.round_pack(chars, fields, cen, T, 2 * T, NWIN, sparse)
+        torch.cuda.synchronize()
+        assert (K4.sparse_launches, K4.dense_launches) == (
+            n0[0] + sparse, n0[1] + (not sparse))
+        want = K4.round_pack_reference(chars, fields, cen, T, 2 * T, NWIN, sparse)
+        assert torch.equal(got, want), (T, N, live, sparse)
+        if sparse:
+            ovf = want[:, -NWIN - 1].cpu().numpy().astype(bool)
+            n = np.arange(N)
+            assert ovf[n % 4 != 0].all() if live == "all" else not ovf.any()
+
+
+def _window_case(seed, N, resident):
+    """Windowed lanes' fields on the card: interiors at every loc0 from 0
+    to 66 (odd ones included); lanes 1, 2, 3 (mod 8) over the divergence,
+    insertion and escape caps; every fourth lane padding (t_len 1, sym 5,
+    jpath -1); in resident mode templates starting at the store's end and
+    before its start (both clamped), the store's tail filled."""
+    rng = np.random.default_rng(seed)
+    T, RL = 192, 384
+    tpl = rng.integers(0, 4, (N, T)).astype(np.int8)
+    n = np.arange(N)
+    p = np.where(n % 8 == 1, 0.7, 0.1)[:, None]
+    sym = np.where(rng.random((N, T)) < p, rng.integers(0, 5, (N, T)), tpl)
+    pi = np.where(n % 8 == 2, 0.3, 0.04)[:, None, None]
+    ins = np.where(rng.random((N, T + 1, 1)) < pi,
+                   rng.integers(0, 5, (N, T + 1, 4)), 0).astype(np.int8)
+    steps = rng.choice([0, 1, 2], (N, T), p=[0.05, 0.85, 0.1])
+    steps[n % 8 == 3, ::10] = 17
+    jpath = np.concatenate([rng.integers(0, 9, (N, 1)), steps], 1).cumsum(1)
+    a = rng.integers(0, 40, N)
+    b = T - rng.integers(0, 40, N)
+    col = np.arange(T + 1)[None, :]
+    ok = (col >= a[:, None]) & (col <= b[:, None]) & (n % 4 != 0)[:, None]
+    sym = np.where(ok[:, :T], sym, 5).astype(np.int8)
+    jpath = np.where(ok, jpath, -1).astype(np.int32)
+    loc0 = (n * 7) % 67
+    t_lens = np.where(n % 4 == 0, 1, rng.integers(130, T + 1, N))
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).cuda()
+    fields = (t(sym), t(ins), t(jpath))
+    cen = t((jpath + rng.integers(-80, 80, jpath.shape)).astype(np.int32))
+    if resident:
+        store = rng.integers(0, 4, N * T + 4096).astype(np.uint8)
+        meta = np.stack([t_lens, rng.integers(0, RL, N), loc0, n * T + 512,
+                         np.zeros(N)]).astype(np.int32)
+        meta[3, 1] = len(store) - 7       # past the end: clamped to len - T
+        meta[3, 2 % N] = -3               # before the start: clamped to 0
+        return t(store), t(meta), fields, cen
+    chars = np.concatenate([pack2bit(tpl.astype(np.uint8)),
+                            rng.integers(0, 256, (N, 144)).astype(np.uint8)], 1)
+    meta = np.stack([t_lens, rng.integers(0, RL, N), np.zeros(N), loc0]).astype(np.int32)
+    return t(chars), t(meta), fields, cen
+
+
+@pytest.mark.parametrize("resident", [False, True])
+@pytest.mark.parametrize("N", _K4W_NS)
+def test_window_pack_kernel_at_buckets(cuda, N, resident):
+    """K4w, sparse and dense, equal to its plain version at the lane
+    ladder's N, odd loc0s, clamped template starts and every cap."""
+    tsrc, meta, fields, cen = _window_case(N + resident, N, resident)
+    for sparse in (True, False):
+        n0 = (K4.window_sparse_launches, K4.window_dense_launches)
+        got = K4.window_pack(tsrc, meta, fields, cen, sparse, resident)
+        torch.cuda.synchronize()
+        assert (K4.window_sparse_launches, K4.window_dense_launches) == (
+            n0[0] + sparse, n0[1] + (not sparse))
+        want = K4.window_pack_reference(tsrc, meta, fields, cen, sparse, resident)
+        assert torch.equal(got, want), (N, resident, sparse)
+        if sparse:
+            ovf = want.cpu().numpy().view(np.uint8).reshape(N, -1)[:, 166]
+            n = np.arange(N)
+            assert ovf[np.isin(n % 8, (1, 2, 3))].all()
