@@ -4,13 +4,14 @@
     python3 chip_smoke.py [--baseline DIR]
 
 ``--baseline DIR``: a directory holding another version's ``extend.cu``,
-``nw_round.cu``, ``nw_dist.cu`` and/or ``round_pack.cu``, with its
-``pack2.cuh`` beside them (``git show <rev>:dentist_tpu_torch/csrc/<file>``
-into an ignored directory of the repo).  Each source it holds is built
-with the package's flags, one ``nvcc`` each, all started together, and
-phase 3 checks that version's kernels equal to this one's and times them
-beside this one's in the same process, in turns (baseline, kernel,
-kernel, baseline): K1 and K1p, K2p and K2r, K3p, K4 and K4w.
+``nw_round.cu``, ``nw_dist.cu``, ``round_pack.cu`` and/or
+``store_write.cu``, with its ``pack2.cuh`` beside them (``git show
+<rev>:dentist_tpu_torch/csrc/<file>`` into an ignored directory of the
+repo).  Each source it holds is built with the package's flags, one
+``nvcc`` each, all started together, before phase 3, and phase 3 checks
+that version's kernels equal to this one's and times them beside this
+one's in the same process, in turns (baseline, kernel, kernel,
+baseline): K1 and K1p, K2p and K2r, K3p, K3b, K4 and K4w, K5.
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -51,7 +52,12 @@ Phases (any failure exits non-zero and prints no result line):
    launch's own inputs, cloned there (a resident launch's template
    windows cut into a store of their own); with ``--baseline``, the
    other K4 or K4w checked equal word for word and timed beside this
-   one's there.  K3, K3p, K4 and K4w are timed through their wrappers
+   one's there.  K5 also runs after phase 5, at every upload size it
+   made (and the largest again at an unaligned offset), with its bytes,
+   bound and their ratio; with ``--baseline``, the other K5 on the same
+   upload in one launch.  K3b's four cases (free-shift and global, W =
+   64 and 65) are held with ``--baseline``'s K3b too.  K3, K3p, K3b, K4,
+   K4w and K5 are timed through their wrappers
    as every kernel is, and besides by device time, their launches queued
    behind a sleep kernel (a launch through the wrapper takes longer on
    the host than the kernel on the card); the turns use device time.
@@ -66,7 +72,9 @@ Phases (any failure exits non-zero and prints no result line):
    wrapper around ``banded.extend``, K2p's and K2r's (T, RL, N, live
    lanes) through wrappers around the names ``ops/consensus.py`` calls
    them by, K3p's (V, NB, live candidates, filled slots) and K4's and
-   K4w's (T, N, sparse, resident, live lanes) the same way), the gaps closed (byte-exact against
+   K4w's (T, N, sparse, resident, live lanes) the same way, and each K5
+   upload's characters and offset through a wrapper around
+   ``banded.store_write``, one launch each), the gaps closed (byte-exact against
    the simulated truth) must be at least as many as the JAX package
    closes, and the FASTA, AGP and BED must hash to the JAX package's
    outputs.
@@ -764,7 +772,10 @@ def k3_case(rng, V: int, NB: int, TW: int, TWp: int, RW: int, live: int,
             torch.from_numpy(meta).cuda())
 
 
-def phase_kernels():
+def phase_kernels(nw_dist_old=None):
+    """Phase 3 at fixed shapes; with ``nw_dist_old`` (:func:`build_baselines`'
+    ``nw_dist.cu``), the other version's K3b checked equal and timed
+    beside this one's at each K3b case, in turns, by device time."""
     import torch
 
     from dentist_tpu_torch.ops import banded, nw_dist, nw_round, round_pack
@@ -871,10 +882,11 @@ def phase_kernels():
 
     k5 = hold(f"K5 store_write n={n}", k5_kernel, k5_plain, 10,
               bound(n // 4 + n, OPS_PER_CELL["K5"] * n))
+    k5_dev = cuda_ms_queued(k5_kernel, 20)
+    log(f"  device {k5_dev:.4f} ms (launches queued), "
+        f"{k5_dev / k5['bound_ms']:.2f}x the bound")
 
     k4_fixed = {"K4": k4s, "K4dense": k4d, "K4w": k4ws, "K4wdense": k4wd}
-    rows.append(("K5 store_write", "dentist_tpu_torch/csrc/store_write.cu",
-                 "dentist_tpu/ops/banded.py:448", "main", "K5", k5))
 
     # K3 and K3p: the polish scorer at V = 256 candidates (and after
     # phase 5 at the main path's buckets, phase_k3)
@@ -914,17 +926,36 @@ def phase_kernels():
             k3f = merge(k3f, st)
     T, RL, V, N = 512, 640, 64, 32
     args = scorer_case(rng, V, N, T, RL, True)
+    stream = lambda: torch.cuda.current_stream().cuda_stream
     for W in (64, 65):
         for ends in (False, True):
+            kernel = lambda: nw_dist.banded_nw_dist(*args, T=T, W=W,
+                                                    global_ends=ends)
             st = hold(f"K3b banded_nw_dist V={V} N={N} T={T} RL={RL} W={W} "
-                      f"global_ends={ends}",
-                      lambda: nw_dist.banded_nw_dist(*args, T=T, W=W,
-                                                     global_ends=ends),
+                      f"global_ends={ends}", kernel,
                       lambda: nw_dist.banded_nw_dist_reference(*args, T, W, ends),
                       3, scorer_work(args, T, W))
             log(f"  {int((st['out'] < nw_dist.INF).sum())}/{V * N} pairs "
                 f"within the band")
+            dev = cuda_ms_queued(kernel, 5)
+            log(f"  {st['ms'] / st['bound_ms']:.1f}x the bound through the "
+                f"wrapper; device {dev:.4f} ms (launches queued), "
+                f"{dev / st['bound_ms']:.1f}x the bound")
             k3b = merge(k3b, st)
+            if nw_dist_old:
+                out = torch.empty_like(st["out"])
+                old = lambda: nw_dist_old["dentist_banded_nw_dist"](
+                    *(a.data_ptr() for a in args), out.data_ptr(), V, N, T,
+                    RL, W, int(ends), stream())
+                old()
+                torch.cuda.synchronize()
+                if max_abs_err(out, st["out"]):
+                    fail(f"K3b baseline != kernel at W={W} global_ends={ends}")
+                log("  K3b baseline equal to the kernel")
+                turns(f"K3b W={W} global_ends={ends} (device time, launches "
+                      f"queued):", kernel, old, 5, cuda_ms_queued)
+    if not nw_dist_old:
+        log("  no nw_dist.cu in --baseline: no other K3b version timed")
     phase3 = launch_counts()
     rows.append(("K3f nw_dist_full", "dentist_tpu_torch/csrc/nw_dist.cu",
                  "dentist_tpu/ops/consensus.py:1936", "phase3", "K3f", k3f))
@@ -945,9 +976,11 @@ BASELINE_ENTRIES = {
     "nw_round.cu": {"dentist_nw_round": (13, 8),
                     "dentist_nw_round_packed": (11, 8),
                     "dentist_nw_round_resident": (11, 9)},
-    "nw_dist.cu": {"dentist_nw_dist": (3, 5), "dentist_nw_dist_packed": (3, 5)},
+    "nw_dist.cu": {"dentist_nw_dist": (3, 5), "dentist_nw_dist_packed": (3, 5),
+                   "dentist_banded_nw_dist": (5, 6)},
     "round_pack.cu": {"dentist_round_pack": (10, 6),
                       "dentist_window_pack": (7, 6)},
+    "store_write.cu": {"dentist_store_write": (2, 2)},
 }
 
 
@@ -1391,6 +1424,64 @@ def phase_k4(k4_buckets: dict, baseline, fixed: dict) -> list:
 # phases 4 and 5: the main path
 
 
+def phase_k5(uploads: list, baseline) -> list:
+    """Phase 3 for K5, after phase 5: one upload of each size phase 5 made
+    (its characters, at a 16-byte aligned offset as the main path's
+    are), and the largest again at an unaligned offset, against the
+    plain version (tolerance 0), with the bytes it moves, its bound, its
+    device time (launches queued) and their ratio.  With ``baseline``
+    (:func:`build_baselines`' ``store_write.cu``), the other version's K5
+    is checked equal on the same upload, in one launch, and timed beside
+    this one's, in turns, by device time."""
+    import torch
+
+    from dentist_tpu_torch.ops import banded
+
+    if not uploads:
+        fail("phase 5 made no K5 upload")
+    sizes = sorted({n for n, _ in uploads})
+    rng = np.random.default_rng(2028)
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    k5 = {}
+    for n, off in [(n, 4096) for n in sizes] + [(sizes[-1], 4096 + 3)]:
+        packed = torch.from_numpy(rng.integers(0, 256, n // 4).astype(np.uint8)).cuda()
+        dst_k = torch.zeros(off + n + 16, dtype=torch.uint8, device="cuda")
+        dst_p = torch.zeros_like(dst_k)
+
+        def kernel():
+            banded.store_write(packed, dst_k, off)
+            return dst_k
+
+        def plain():
+            banded.store_write_reference(packed, dst_p, off)
+            return dst_p
+
+        st = hold(f"K5 store_write n={n} off % 16 = {off % 16}", kernel, plain,
+                  20, bound(n // 4 + n, OPS_PER_CELL["K5"] * n))
+        dev = cuda_ms_queued(kernel, 20)
+        log(f"  {n // 4 + n} bytes; device {dev:.4f} ms (launches queued), "
+            f"{dev / st['bound_ms']:.2f}x the bound; through the wrapper "
+            f"{st['ms'] / st['bound_ms']:.1f}x")
+        if off % 16:
+            k5["err"] = max(k5["err"], st["err"])
+            continue
+        k5 = merge(k5, st)
+        if baseline:
+            out = torch.zeros_like(dst_k)
+            old = lambda: baseline["dentist_store_write"](
+                packed.data_ptr(), out.data_ptr(), off, n, stream())
+            old()
+            torch.cuda.synchronize()
+            if max_abs_err(out, dst_k):
+                fail(f"K5 baseline != kernel at n={n}")
+            turns(f"K5 n={n}, one launch each (device time, launches queued):",
+                  kernel, old, 20, cuda_ms_queued)
+    if not baseline:
+        log("  no store_write.cu in --baseline: no other K5 version timed")
+    return [("K5 store_write", "dentist_tpu_torch/csrc/store_write.cu",
+             "dentist_tpu/ops/banded.py:448", "main", "K5", k5)]
+
+
 def phase_e2e(tmp: str) -> None:
     from dentist_tpu_torch.scenarios import e2e_scenario, write_scenario
 
@@ -1500,6 +1591,15 @@ def phase_a(tmp: str) -> dict:
                    bool(resident)), inputs)
         return k4_fns[1](tsrc, meta, fields, centers, sparse, resident=resident)
 
+    # each K5 upload's characters and store offset, through a wrapper
+    # around the name ``DeviceStore.offset_of`` calls
+    k5_uploads = []
+    store_write = banded.store_write
+
+    def recorded_k5(packed, store, off):
+        k5_uploads.append((4 * packed.numel(), off))
+        return store_write(packed, store, off)
+
     k2_fns = (consensus.nw_round_packed, consensus.nw_round_resident)
     # each K3p launch's (V, NB, TW, TWp, RW) and what its inputs need
     # (k3_counts), through a wrapper around the name consensus calls
@@ -1512,6 +1612,7 @@ def phase_a(tmp: str) -> dict:
         return k3_fn(chars, meta, TW=TW, TWp=TWp, RW=RW, NB=NB)
 
     banded.extend = recorded
+    banded.store_write = recorded_k5
     consensus.nw_round_packed = k2_recorder("K2p", k2_fns[0])
     consensus.nw_round_resident = k2_recorder("K2r", k2_fns[1])
     consensus.nw_dist_pairs_packed = recorded_k3
@@ -1521,6 +1622,7 @@ def phase_a(tmp: str) -> dict:
         result, out, wall = run_phase_a(d, asm, reads, "")
     finally:
         banded.extend = extend
+        banded.store_write = store_write
         consensus.nw_round_packed, consensus.nw_round_resident = k2_fns
         consensus.nw_dist_pairs_packed = k3_fn
         consensus.round_pack, consensus.window_pack = k4_fns
@@ -1577,6 +1679,11 @@ def phase_a(tmp: str) -> dict:
     log("  K4 and K4w launches by (T, N): " + "; ".join(
         f"{k4_what(key)} x{r['launches']}, {r['live']} live lanes"
         for key, r in sorted(k4_buckets.items())))
+    log(f"  K5 uploads (characters): {[n for n, _ in k5_uploads]}, "
+        f"{sum(n for n, _ in k5_uploads)} in all; offsets a multiple of 16: "
+        f"{sum(o % 16 == 0 for _, o in k5_uploads)}/{len(k5_uploads)}")
+    if len(k5_uploads) != launches["K5"]:
+        fail(f"{launches['K5']} K5 launches for {len(k5_uploads)} uploads")
     for name, want in PHASE_A_SHA256.items():
         got = sha256(os.path.join(d, name))
         if got != want:
@@ -1592,7 +1699,8 @@ def phase_a(tmp: str) -> dict:
         fail(f"closed {result.n_closed_gaps} gaps, JAX closes {PHASE_A_JAX_CLOSED}")
     if exact < PHASE_A_JAX_EXACT:
         fail(f"{exact} gaps closed byte-exact, JAX closes {PHASE_A_JAX_EXACT}")
-    return launches, sc, buckets, k2_buckets, k3_buckets, k4_buckets
+    return (launches, sc, buckets, k2_buckets, k3_buckets, k4_buckets,
+            k5_uploads)
 
 
 def consensus_sections(sections: dict) -> dict:
@@ -1934,9 +2042,10 @@ def main() -> None:
     ap = argparse.ArgumentParser(description="Drive the port once on one GPU.")
     ap.add_argument("--baseline", metavar="DIR",
                     help="a directory holding another version's extend.cu, "
-                         "nw_round.cu, nw_dist.cu and/or round_pack.cu with "
-                         "its pack2.cuh: phase 3 times each one's kernels "
-                         "beside this version's, in the same process")
+                         "nw_round.cu, nw_dist.cu, round_pack.cu and/or "
+                         "store_write.cu with its pack2.cuh: phase 3 times "
+                         "each one's kernels beside this version's, in the "
+                         "same process")
     args = ap.parse_args()
     try:
         import torch
@@ -1975,21 +2084,24 @@ def main() -> None:
         log(f"  {line}")
     k3_sass_step(_build.library()._name)
 
-    # 3. kernels against their plain versions (K1 and K1p after phase 5)
-    rows, phase3, k4_fixed = phase_kernels()
+    # 3. kernels against their plain versions (K1, K1p, K2, K2p, K2r, K3,
+    # K3p, K4, K4w and K5 again after phase 5)
     baselines = build_baselines(args.baseline)
+    rows, phase3, k4_fixed = phase_kernels(baselines.get("nw_dist.cu"))
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         # 4. main path, small, against the JAX package's hashes
         phase_e2e(tmp)
         # 5. main path at real size
-        launches, sc, buckets, k2_buckets, k3_buckets, k4_buckets = phase_a(tmp)
-        # 3, K1, K1p, K2, K2p, K2r, K3, K3p, K4 and K4w: at the buckets
-        # phase 5 launched
+        (launches, sc, buckets, k2_buckets, k3_buckets, k4_buckets,
+         k5_uploads) = phase_a(tmp)
+        # 3, K1, K1p, K2, K2p, K2r, K3, K3p, K4, K4w and K5: at the buckets
+        # and upload sizes phase 5 launched
         rows = (phase_k1(buckets, baselines.get("extend.cu"))
                 + phase_k2(k2_buckets, baselines.get("nw_round.cu"))
                 + phase_k3(k3_buckets, baselines.get("nw_dist.cu"))
                 + phase_k4(k4_buckets, baselines.get("round_pack.cu"), k4_fixed)
+                + phase_k5(k5_uploads, baselines.get("store_write.cu"))
                 + rows)
         # 6. where the time goes in later calls
         phase_profile(tmp, PROFILE_CALLS)

@@ -57,17 +57,29 @@
 // held against their plain versions only.
 // - K3f replaces consensus.py:_nw_dist_full, both end modes: one thread
 //   per pair walks a full-width row through local memory, RL <= 127.
-// - K3b replaces consensus.py:_banded_nw_dist: one thread per pair keeps
-//   a W-cell band (W <= 256) of its row in local memory; the band of row
+// - K3b replaces consensus.py:_banded_nw_dist: one warp per pair, its
+//   W-cell band (W <= 256) in registers, cell p = 32 k + lane in register
+//   k < ceil(W / 32) of the lane; cells p >= W hold INF.  The band of row
 //   i starts at read column off(i) = clip(i * rl / t_len - W/2, ...), so
-//   a row reads the previous one shifted by s = off(i) - off(i-1) >= 0.
-//   Walking the band left to right in place, cell p reads the old cells
-//   p + s (up) and p + s - 1 (diagonal): the first is not yet overwritten
-//   because s >= 0, and the second is the first of cell p - 1, carried in
-//   a register.  Any read length is accepted; reads are read from device
-//   memory cell by cell.
-// Both are bound by arithmetic: a few integer ops per DP cell on a few
-// bytes per row.
+//   a row reads the previous one shifted by s = off(i) - off(i-1), the
+//   same for the whole warp: up = D_prev[p + s] is a rotation of each
+//   register by s & 31 lanes (one shuffle; lanes past the wrap take the
+//   next register's) and a move of the registers by s >> 5 (a
+//   warp-uniform branch, taken only where the band moves by 32 cells or
+//   more a row, through the warp's slice of shared memory); the diagonal
+//   D_prev[p + s - 1] is one more shuffle from lane - 1.  The closure min
+//   over q <= p of tmp[q] - q is an inclusive warp min-scan of each
+//   register (five shuffles up) and the minimum of the lower registers'
+//   totals (one redux.sync each, off the scan's chain).  A row's template
+//   character and band offset are loaded and computed by the whole warp
+//   alike (the same address, the same values), which keeps the shift and
+//   its branches uniform; each register's read characters are 32
+//   adjacent bytes.  Nothing is in local memory.
+// K3f is bound by arithmetic: a few integer ops per DP cell on a few
+// bytes per row.  K3b's bound counts 6 operations a cell; the kernel
+// issues a few dozen warp instructions per register and row for 32 cells,
+// and each row waits on the one before through a chain of dependent
+// shuffles (the rotation, the diagonal, five scan steps).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -281,58 +293,147 @@ __device__ __forceinline__ int band_off(int i, int tl, int rl, int W) {
   return min(max(c - W / 2, lo), hi);
 }
 
-// K3b: templates (V, T), reads (V, N, RL) -> out (V, N), band width W
-template <bool kGlobal>
+constexpr unsigned kFull = 0xffffffffu;
+
+// K3b: templates (V, T), reads (V, N, RL) -> out (V, N), band width W <=
+// 32 kRegs.  One warp per (v, n) pair, alone in its CTA: the pair, its
+// lengths, the row loop, the shift and its branches are then uniform
+// across the block, so the compiler emits the shuffles without the
+// collective sequences it needs where a warp may have diverged.  Band
+// cell p = 32 k + lane is register k of the lane.
+template <bool kGlobal, int kRegs>
 __global__ void banded_nw_dist_kernel(const uint8_t* __restrict__ tpl,
                                       const int* __restrict__ t_lens,
                                       const uint8_t* __restrict__ reads,
                                       const int* __restrict__ read_lens,
-                                      int* __restrict__ out, int V, int N,
-                                      int T, int RL, int W) {
-  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= (long long)V * N) return;
-  const int v = (int)(g / N);
+                                      int* __restrict__ out, int N, int T,
+                                      int RL, int W) {
+  // the registers, where the band moves by a whole register or more
+  __shared__ int moved[kRegs + 1][32];
+  const int lane = threadIdx.x;
+  const int g = blockIdx.x;  // consecutive CTAs: consecutive n of one v
+  const int v = g / N;
   const uint8_t* t = tpl + (size_t)v * T;
   const uint8_t* rd = reads + (size_t)g * RL;
-  const int tl = t_lens[v];
-  const int rl = read_lens[g];
+  const int tl = __ldg(t_lens + v);
+  const int rl = __ldg(read_lens + g);
+  if (rl < 0) {  // no cell lies in the DP: every row is INF
+    if (lane == 0) out[g] = kInf;
+    return;
+  }
 
-  int D[kBandMax];
-  int off_prev = band_off(0, tl, rl, W);
-  for (int p = 0; p < W; ++p) {
-    const int j = off_prev + p;
-    D[p] = (j >= 0 && j <= rl) ? (kGlobal ? j : 0) : kInf;
+  // read column j = off + p of cell p when cell 0 is at column off (JAX's
+  // int32 wrap); the cell lies in the DP where p < W and 0 <= j <= rl
+  int D[kRegs];
+  int off = band_off(0, tl, rl, W);
+#pragma unroll
+  for (int k = 0; k < kRegs; ++k) {
+    const int p = 32 * k + lane;
+    const int j = (int)((unsigned)off + p);
+    D[k] = p < W && (unsigned)j <= (unsigned)rl ? (kGlobal ? j : 0) : kInf;
   }
 
   int best = kInf;
   const int rows = tl < T ? tl : T;  // rows past t_len are all INF
   for (int i = 1; i <= rows; ++i) {
-    const int off = band_off(i, tl, rl, W);
-    const int s = off - off_prev;  // >= 0: off is nondecreasing in i
-    const int t_ch = t[i - 1];
-    // the previous row at p + s - 1, for p = 0; later the last "up" read
-    int e_left = (s >= 1 && s - 1 < W) ? D[s - 1] : kInf;
-    int run = kInf, row_min = kInf, at_end = kInf;
-    for (int p = 0; p < W; ++p) {
-      const int q = p + s;
-      const int e = (q >= 0 && q < W) ? D[q] : kInf;
-      const int j = off + p;
-      const int r_ch = rd[min(max(j - 1, 0), RL - 1)];
-      const int diag = j >= 1 ? e_left + (r_ch != t_ch) : kInf;
-      int up = e + 1;
-      if (!kGlobal && j == 0) up = min(up, 0);
-      run = min(run, min(diag, up) - p);
-      const int d = (j >= 0 && j <= rl) ? min(run + p, kInf) : kInf;
-      D[p] = d;
-      e_left = e;
-      row_min = min(row_min, d);
-      if (j == rl) at_end = d;
+    const int t_ch = __ldg(t + i - 1);
+    const int off_i = band_off(i, tl, rl, W);
+    // the shift, warp-uniform and >= 0 unless i * rl wraps; a shift past
+    // the band's 32 kRegs cells leaves only INF
+    const long long ds = (long long)off_i - off;
+    const int s = (int)(ds < -1024 ? -1024 : ds > 1024 ? 1024 : ds);
+    const int a = s >> 5, b = s & 31;
+    off = off_i;
+
+    // E[k + 1] = D_prev[32 k + lane + s] for k in [-1, kRegs): rotate each
+    // register by b lanes (lanes past the wrap take the next register),
+    // then move the registers by a
+    const bool wrap = lane + b >= 32;
+    int X[kRegs + 2];  // X[k + 1] = shfl(D[k], lane + b); X[0], X[kRegs + 1] INF
+    X[0] = X[kRegs + 1] = kInf;
+#pragma unroll
+    for (int k = 0; k < kRegs; ++k)
+      X[k + 1] = b ? __shfl_sync(kFull, D[k], (lane + b) & 31) : D[k];
+    int E[kRegs + 1];
+#pragma unroll
+    for (int m = 0; m <= kRegs; ++m) E[m] = wrap ? X[m + 1] : X[m];
+    if (a != 0) {  // the band moves by 32 cells or more: E[m] = E[m + a]
+#pragma unroll
+      for (int m = 0; m <= kRegs; ++m) moved[m][lane] = E[m];
+      __syncwarp();
+#pragma unroll
+      for (int m = 0; m <= kRegs; ++m) {
+        const int src = m + a;
+        E[m] = src >= 0 && src <= kRegs ? moved[src][lane] : kInf;
+      }
+      __syncwarp();
     }
-    off_prev = off;
-    if (!kGlobal || i == tl) best = min(best, at_end);
-    if (!kGlobal && i == tl) best = min(best, row_min);
+
+    // tmp = min(diag, up) - p, then its prefix minimum over the band
+    int u[kRegs], tot[kRegs];
+#pragma unroll
+    for (int k = 0; k < kRegs; ++k) {
+      const int p = 32 * k + lane;
+      const int j = (int)((unsigned)off + p);
+      // D_prev[p + s - 1]: lane - 1's E, lane 0 taking lane 31's E[k - 1]
+      const int e1 = __shfl_sync(kFull, lane == 31 ? E[k] : E[k + 1],
+                                 (lane + 31) & 31);
+      const int jr = (int)((unsigned)j - 1u);
+      const int r_ch = __ldg(rd + (jr < 0 ? 0 : jr > RL - 1 ? RL - 1 : jr));
+      const int diag = j >= 1 ? e1 + (r_ch != t_ch) : kInf;
+      int up = E[k + 1] + 1;
+      if (!kGlobal && j == 0) up = min(up, 0);  // free leading template gap
+      int x = min(diag, up) - p;
+      tot[k] = __reduce_min_sync(kFull, x);
+      // lanes below d get their own x back from the shuffle
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) x = min(x, __shfl_up_sync(kFull, x, d));
+      u[k] = x;
+    }
+    int carry = 0x7fffffff;  // the lower registers' minimum
+#pragma unroll
+    for (int k = 0; k < kRegs; ++k) {
+      const int p = 32 * k + lane;
+      const int j = (int)((unsigned)off + p);
+      D[k] = p < W && (unsigned)j <= (unsigned)rl ? min(min(u[k], carry) + p, kInf)
+                                                  : kInf;
+      carry = min(carry, tot[k]);
+      if (!kGlobal && j == rl) best = min(best, D[k]);  // the read's end
+    }
   }
-  out[g] = best;
+  // row t_len, where the loop ended on it: the read's end (global) or the
+  // row's minimum (free-shift: the template's end anywhere in the read)
+  if (rows == tl && tl >= 1) {
+#pragma unroll
+    for (int k = 0; k < kRegs; ++k)
+      if (!kGlobal || (int)((unsigned)off + 32 * k + lane) == rl)
+        best = min(best, D[k]);
+  }
+#pragma unroll
+  for (int d = 16; d >= 1; d >>= 1)
+    best = min(best, __shfl_xor_sync(kFull, best, d));
+  if (lane == 0) out[g] = best;
+}
+
+template <bool kGlobal>
+void launch_banded(int regs, unsigned blocks, cudaStream_t stream,
+                   const uint8_t* tpl, const int* t_lens, const uint8_t* reads,
+                   const int* read_lens, int* out, int N, int T, int RL,
+                   int W) {
+  void (*k)(const uint8_t*, const int*, const uint8_t*, const int*, int*,
+            int, int, int, int);
+  switch (regs) {
+    case 1: k = banded_nw_dist_kernel<kGlobal, 1>; break;
+    case 2: k = banded_nw_dist_kernel<kGlobal, 2>; break;
+    case 3: k = banded_nw_dist_kernel<kGlobal, 3>; break;
+    case 4: k = banded_nw_dist_kernel<kGlobal, 4>; break;
+    case 5: k = banded_nw_dist_kernel<kGlobal, 5>; break;
+    case 6: k = banded_nw_dist_kernel<kGlobal, 6>; break;
+    case 7: k = banded_nw_dist_kernel<kGlobal, 7>; break;
+    default: k = banded_nw_dist_kernel<kGlobal, 8>; break;
+  }
+  k<<<blocks, 32, 0, stream>>>(tpl, t_lens, reads, read_lens, out, N, T, RL,
+                               W);
 }
 
 }  // namespace
@@ -370,13 +471,12 @@ extern "C" int dentist_banded_nw_dist(const void* tpl, const void* t_lens,
                                       const void* reads, const void* read_lens,
                                       void* out, int V, int N, int T, int RL,
                                       int W, int global_ends, void* stream) {
-  const long long total = (long long)V * N;
-  const int threads = 128;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  auto k = global_ends ? banded_nw_dist_kernel<true>
-                       : banded_nw_dist_kernel<false>;
-  k<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)tpl, (const int*)t_lens, (const uint8_t*)reads,
-      (const int*)read_lens, (int*)out, V, N, T, RL, W);
+  const long long pairs = (long long)V * N;  // one CTA each
+  if (W < 1 || W > kBandMax || pairs >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  auto launch = global_ends ? launch_banded<true> : launch_banded<false>;
+  launch((W + 31) / 32, (unsigned)pairs, (cudaStream_t)stream,
+         (const uint8_t*)tpl, (const int*)t_lens, (const uint8_t*)reads,
+         (const int*)read_lens, (int*)out, N, T, RL, W);
   return (int)cudaGetLastError();
 }

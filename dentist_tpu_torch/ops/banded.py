@@ -12,8 +12,8 @@ has two modes, one per dispatch mode of the aligner:
   splits the lanes over the ranks of a data-parallel group and gathers
   their results).
 
-:class:`DeviceStore` uploads its sequences 2-bit packed, one chunk at a
-time through K5 (:func:`store_write`, ``csrc/store_write.cu``), which
+:class:`DeviceStore` uploads its sequences 2-bit packed, one launch of
+K5 (:func:`store_write`, ``csrc/store_write.cu``) an upload, which
 unpacks them into the store on the device.
 
 :func:`extend_reference` is the plain PyTorch version of the DP: a
@@ -79,8 +79,8 @@ RESIDENT_PAD = 46464
 #: upload length buckets (chars), as the TPU arena allocates them
 _RESIDENT_LADDER = [-(-int(65536 * 1.5 ** k) // 4096) * 4096
                     for k in range(40)]
-#: chars per upload chunk (K5 launch); the capacity check counts whole
-#: chunks
+#: chars per upload chunk of the JAX arena; the capacity check counts
+#: whole chunks as the arena does (K5 writes an upload in one launch)
 _ARENA_CHUNK = 1 << 22
 
 
@@ -101,11 +101,15 @@ class DeviceStore:
     Replaces the TPU arena (``dentist_tpu.ops.banded._Arena``): same
     margins, length buckets, ``epoch`` reset when full and
     ``MemoryError`` for a store that cannot fit, so offsets and
-    fallbacks follow the JAX run.  Codes upload as the arena's do: 2-bit
-    packed on the host (each code masked to its two bits), in whole
-    chunks of ``_ARENA_CHUNK`` characters, each unpacked into the store
-    by K5 (the tail of the last chunk writes zeros into space not yet
-    allocated).
+    fallbacks follow the JAX run.  Codes upload 2-bit packed on the host
+    (each code masked to its two bits) and are unpacked into the store by
+    one K5 launch, which writes the upload's own characters (rounded up to
+    a multiple of 4).  The arena writes whole chunks of ``_ARENA_CHUNK``
+    characters, the last one's zero tail landing in space not yet
+    allocated: that space is zero here too (a store starts as zeros and
+    uploads go to rising offsets), so the bytes stay equal to the
+    arena's.  Offsets, resets and ``MemoryError`` still count whole
+    chunks, as the arena does.
     """
 
     def __init__(self, device: torch.device, capacity: int | None = None):
@@ -168,12 +172,9 @@ class DeviceStore:
             off = self.pos
             host = np.zeros(L4, dtype=np.uint8)
             host[:L] = np.asarray(codes, dtype=np.uint8) & 3
-            packed = np.zeros(Lw // 4, dtype=np.uint8)
-            packed[: L4 // 4] = pack2bit(host.reshape(1, -1))[0]
-            packed = torch.from_numpy(packed).to(self.device)
-            for c0 in range(0, Lw, _ARENA_CHUNK):
-                store_write(packed[c0 // 4 : (c0 + _ARENA_CHUNK) // 4],
-                            self.array, off + c0)
+            packed = pack2bit(host.reshape(1, -1))[0]
+            store_write(torch.from_numpy(packed).to(self.device), self.array,
+                        off)
             self.pos += Lb
             if cache:
                 self.keys[key] = (off, codes)
@@ -181,7 +182,7 @@ class DeviceStore:
 
 
 def store_write(packed: torch.Tensor, store: torch.Tensor, off: int) -> None:
-    """K5: unpack the 2-bit packed chunk ``packed`` (n/4,) uint8 into
+    """K5: unpack the 2-bit packed upload ``packed`` (n/4,) uint8 into
     ``store[off : off + n]`` in place, ``store[off + i] = (packed[i >> 2]
     >> (6 − 2·(i & 3))) & 3``."""
     global store_write_launches
@@ -193,7 +194,7 @@ def store_write(packed: torch.Tensor, store: torch.Tensor, off: int) -> None:
         raise KernelError("packed and store must share a device")
     n = 4 * packed.numel()
     if off < 0 or off + n > store.numel() or store.numel() >= 1 << 31:
-        raise KernelError(f"chunk [{off}, {off + n}) outside the store")
+        raise KernelError(f"upload [{off}, {off + n}) outside the store")
     if store.device.type == "cpu":
         store_write_reference(packed, store, off)
         return

@@ -2,7 +2,10 @@
 
 Each kernel runs in its unpacked mode and in its 2-bit packed mode
 (K1p, K2p, K3p); K2r, K4 and K4w (both modes), K5, and K3f and K3b (both
-end modes) too.  Skipped where there is no GPU (a CUDA kernel has no CPU or interpret
+end modes) too.  K5 also at 16-byte, 4-byte and no alignment, an upload
+of several chunks in one launch, and through the device store; K3b at
+band widths of 1 to 256 cells, bands that move more than 32 cells a row
+and reads of one char.  Skipped where there is no GPU (a CUDA kernel has no CPU or interpret
 mode); on a machine with one, run ``python -m pytest --noconftest -m cuda
 tests/test_torch_kernels_cuda.py`` (``tests/conftest.py`` imports JAX).  Inputs are seeded numpy arrays at
 small shapes; every output must be bit-equal (integer DPs).  K1 and K1p
@@ -295,6 +298,64 @@ def test_resident_round_and_window_pack_kernels_equal_plain(cuda, sparse):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("align", [0, 4, 3])
+def test_store_write_kernel_one_launch(cuda, align):
+    """K5 writes an upload of more than two 4 Mi-char chunks (and 12
+    chars past its last 16-char group) in one launch, at a destination
+    16-byte aligned (16-byte stores), 4-byte aligned and unaligned (byte
+    stores), and from a packed array at an odd address (byte loads);
+    nothing outside the upload changes."""
+    rng = np.random.default_rng(10 + align)
+    n = 2 * K1._ARENA_CHUNK + 28
+    packed = torch.from_numpy(rng.integers(0, 256, n // 4 + 1).astype(np.uint8))
+    off = 4096 + 16 * 5 + align
+    init = torch.from_numpy(rng.integers(0, 256, n + 8192).astype(np.uint8))
+    on_card = packed.to(cuda)
+    for cut in (slice(0, n // 4), slice(1, None)):  # the second at an odd address
+        store = init.to(cuda)
+        n0 = K1.store_write_launches
+        K1.store_write(on_card[cut], store, off)
+        torch.cuda.synchronize()
+        assert K1.store_write_launches == n0 + 1
+        want = init.clone()
+        K1.store_write_reference(packed[cut], want, off)
+        assert torch.equal(store.cpu(), want)
+
+
+@pytest.mark.parametrize("n", [4, 12, 16, 28, 4096 + 12])
+def test_store_write_kernel_short_uploads(cuda, n):
+    """K5 on uploads with no 16-char group or a ragged last one (the
+    tail's 1 to 3 packed bytes), aligned and not."""
+    rng = np.random.default_rng(n)
+    packed = torch.from_numpy(rng.integers(0, 256, n // 4).astype(np.uint8))
+    for off in (64, 64 + 3):
+        store = torch.zeros(n + 256, dtype=torch.uint8, device=cuda)
+        K1.store_write(packed.to(cuda), store, off)
+        want = torch.zeros(n + 256, dtype=torch.uint8)
+        K1.store_write_reference(packed, want, off)
+        assert torch.equal(store.cpu(), want), off
+
+
+def test_device_store_one_launch_per_upload(cuda, monkeypatch):
+    """A store on the card makes one K5 launch per upload and holds the
+    bytes of a store on the CPU after the same uploads, a reset
+    included."""
+    monkeypatch.setenv("DENTIST_TPU_ARENA_MB", "24")
+    rng = np.random.default_rng(13)
+    uploads = [rng.integers(0, 4, n).astype(np.uint8)
+               for n in (123, 70_001, K1._ARENA_CHUNK + 1, 5_000_003,
+                         13_000_000)]
+    on_card = K1.DeviceStore(cuda)
+    on_cpu = K1.DeviceStore(torch.device("cpu"))
+    for codes in uploads:
+        n0 = K1.store_write_launches
+        assert on_card.offset_of(codes) == on_cpu.offset_of(codes)
+        torch.cuda.synchronize()
+        assert K1.store_write_launches == n0 + 1
+        assert torch.equal(on_card.array.cpu(), on_cpu.array)
+    assert on_card.epoch == 1
+
+
 def test_store_write_kernel_equals_plain(cuda):
     rng = np.random.default_rng(9)
     packed = torch.from_numpy(rng.integers(0, 256, 1 << 18).astype(np.uint8))
@@ -344,7 +405,12 @@ def test_nw_dist_full_kernel_equals_plain(cuda, global_ends):
     assert torch.equal(got, K3.nw_dist_full_reference(*args, T, global_ends))
 
 
-@pytest.mark.parametrize("W", [64, 65])
+#: K3b's band widths: one cell, one register exactly and one cell more,
+#: the phase-3 widths, and four and eight registers (the widest band)
+_K3B_WIDTHS = [1, 32, 33, 64, 65, 128, 256]
+
+
+@pytest.mark.parametrize("W", _K3B_WIDTHS)
 @pytest.mark.parametrize("global_ends", [False, True])
 def test_banded_nw_dist_kernel_equals_plain(cuda, W, global_ends):
     T, RL = 96, 400
@@ -354,6 +420,47 @@ def test_banded_nw_dist_kernel_equals_plain(cuda, W, global_ends):
     torch.cuda.synchronize()
     assert K3.banded_launches == n0 + 1
     assert torch.equal(got, K3.banded_nw_dist_reference(*args, T, W, global_ends))
+
+
+def _steep_pairs(seed, V, N, T, RL):
+    """Pairs whose band moves by more than 32 cells a row (templates of 1
+    to 12 chars against reads of up to RL chars repeating them, rl >>
+    t_len), beside t_len 0, T and more than T, rl 0 and random reads."""
+    rng = np.random.default_rng(seed)
+    tpl = rng.integers(0, 4, (V, T)).astype(np.uint8)
+    t_lens = np.array([(0, 1, 2, 3, 5, 8, 12, T, T + 4, T // 2)[v % 10]
+                       for v in range(V)], np.int32)
+    reads = rng.integers(0, 4, (V, N, RL)).astype(np.uint8)
+    r_lens = rng.integers(0, RL + 1, (V, N)).astype(np.int32)
+    for v in range(V):
+        t = tpl[v, : min(t_lens[v], T)]
+        for n in range(N):
+            if n % 4 == 3 or not len(t):
+                continue
+            r = np.resize(t, r_lens[v, n] if n % 4 else min(RL, 2 * len(t)))
+            flip = rng.random(len(r)) < 0.1
+            r[flip] = rng.integers(0, 4, int(flip.sum()))
+            reads[v, n, : len(r)], r_lens[v, n] = r, len(r)
+    r_lens[::7, 0] = 0
+    return tpl, t_lens, reads, r_lens
+
+
+@pytest.mark.parametrize("W", _K3B_WIDTHS)
+@pytest.mark.parametrize("global_ends", [False, True])
+def test_banded_nw_dist_kernel_steep_and_short(cuda, W, global_ends):
+    """K3b where the band moves by more than a register a row (a
+    register move as well as a lane rotation), and on reads of RL = 1
+    (one char or none; the band's left clip puts cells at negative
+    columns), against its plain version."""
+    for T, RL, seed in ((24, 1200, 20 + W), (16, 1, 40 + W)):
+        arrays = _steep_pairs(seed, 40, 8, T, RL)
+        args = [torch.from_numpy(a).to(cuda) for a in arrays]
+        n0 = K3.banded_launches
+        got = K3.banded_nw_dist(*args, T=T, W=W, global_ends=global_ends)
+        torch.cuda.synchronize()
+        assert K3.banded_launches == n0 + 1
+        want = K3.banded_nw_dist_reference(*args, T, W, global_ends)
+        assert torch.equal(got, want), (T, RL)
 
 
 #: K2's edges: band widths from 16 to 1024 (V = 4 cells a thread up to

@@ -366,3 +366,139 @@ def test_nw_dist_pairs_edges_equal_jax(TW, TWp, RW, NB):
     assert (K3.launches, K3.packed_launches) == n0
     np.testing.assert_array_equal(got.numpy(), ref)
     np.testing.assert_array_equal(got_p.numpy(), ref)
+
+
+# ----------------------------------------------------------------------
+# K3b's warp layout, modelled in numpy: one warp per (v, n) pair, band
+# cell p in register k = p >> 5 of lane p & 31.  A row's shift s = off(i)
+# - off(i-1) splits into a register move by s >> 5 and a lane rotation by
+# s & 31; the closure is an inclusive min-scan of each register (five
+# shuffles up) and the carry of the lower registers' totals.  The model
+# follows ``banded_nw_dist_kernel`` in ``csrc/nw_dist.cu`` step by step
+# and lies on no path of the package.
+
+_INT_MAX = (1 << 31) - 1
+
+
+def _band_off(i, tl, rl, W):
+    """Read column of band cell 0 on row ``i`` (``band_off``)."""
+    c = (i * rl) // np.maximum(tl, 1)
+    return np.minimum(np.maximum(c - W // 2, -W // 2), np.maximum(rl - W // 2, 0))
+
+
+def _k3b_model(tpl, t_lens, reads, r_lens, T, W, global_ends, carry=True):
+    """(V, N) distances as K3b computes them, one warp per pair."""
+    V, N, RL = reads.shape
+    K, P, INF = -(-W // 32), V * N, C._INF
+    lane = np.arange(32)
+    p = np.arange(K)[:, None] * 32 + lane  # (K, 32): cell of (register, lane)
+    v = np.repeat(np.arange(V), N)
+    tl = t_lens[v].astype(np.int64)
+    rl = r_lens.reshape(-1).astype(np.int64)
+    rl3 = rl[:, None, None]
+    rd = reads.reshape(P, RL).astype(np.int64)
+    pairs = np.arange(P)[:, None, None]
+
+    def cells_ok(j):
+        return (p < W) & (j >= 0) & (j <= rl3)
+
+    off = _band_off(0, tl, rl, W)
+    j = off[:, None, None] + p
+    D = np.where(cells_ok(j), j if global_ends else 0, INF)
+    best = np.full(P, INF, np.int64)
+    rows = np.minimum(tl, T)
+    for i in range(1, int(rows.max(initial=0)) + 1):
+        live = i <= rows
+        off_i = _band_off(i, tl, rl, W)
+        s = np.clip(off_i - off, -1024, 1024)
+        a, b = s >> 5, s & 31
+        # the lane rotation: X[k] = shfl(D[k], (lane + b) & 31)
+        src = (lane + b[:, None]) & 31
+        X = np.take_along_axis(D, np.broadcast_to(src[:, None, :], D.shape), 2)
+        full = np.full((P, 1, 32), INF)
+        Xp = np.concatenate([full, X, full], axis=1)  # X[-1 .. K]
+        # Y[m] = D_prev[32 m + lane + b], m in [-1, K): the wrap lanes
+        # take the next register's rotated value
+        wrap = (lane + b[:, None] >= 32)[:, None, :]
+        Y = np.where(wrap, Xp[:, 1:], Xp[:, :-1])
+        # the register move: E[k] = Y[k + a] = D_prev[p + s], k in [-1, K)
+        m = np.arange(K + 1) + a[:, None]
+        E = np.where(((m >= 0) & (m <= K))[:, :, None],
+                     np.take_along_axis(Y, np.clip(m, 0, K)[:, :, None]
+                                        .repeat(32, 2), 1), INF)
+        # E1[k] = D_prev[p + s - 1]: one shuffle from lane - 1, lane 0
+        # taking lane 31 of the register below (E[-1] for k = 0)
+        E1 = np.where(lane == 31, E[:, :-1], E[:, 1:])[:, :, (lane - 1) & 31]
+        j = off_i[:, None, None] + p
+        r_ch = rd[pairs, np.clip(j - 1, 0, RL - 1)]
+        t_ch = tpl[v, i - 1].astype(np.int64)[:, None, None]
+        diag = np.where(j >= 1, E1 + (r_ch != t_ch), INF)
+        up = E[:, 1:] + 1
+        if not global_ends:
+            up = np.where(j == 0, np.minimum(up, 0), up)
+        u = np.minimum(diag, up) - p
+        for d in (1, 2, 4, 8, 16):  # shfl_up; lanes below d keep theirs
+            u = np.where(lane >= d, np.minimum(u, np.roll(u, d, axis=2)), u)
+        if carry:  # the minimum of the lower registers' totals (lane 31)
+            tot = np.concatenate([np.full((P, 1), _INT_MAX), u[:, :-1, 31]], 1)
+            u = np.minimum(u, np.minimum.accumulate(tot, axis=1)[:, :, None])
+        Dn = np.where(cells_ok(j), np.minimum(u + p, INF), INF)
+        if not global_ends:  # the read's end on any row
+            at_end = np.where(j == rl3, Dn, INF).min(axis=(1, 2))
+            best = np.where(live, np.minimum(best, at_end), best)
+        D = np.where(live[:, None, None], Dn, D)
+        off = np.where(live, off_i, off)
+    # row t_len, where the loop ended on it: the read's end (global) or
+    # the row's minimum (free-shift: the template's end anywhere)
+    j = off[:, None, None] + p
+    last = (np.where(j == rl3, D, INF) if global_ends else D).min(axis=(1, 2))
+    best = np.where((rows == tl) & (tl >= 1), np.minimum(best, last), best)
+    return best.reshape(V, N).astype(np.int32)
+
+
+def _steep_pairs(seed, V, N, T, RL):
+    """Pairs whose band moves by more than a warp's 32 cells a row:
+    templates of 1 to 12 chars against reads of up to RL chars that
+    repeat them with 10 % noise (rl >> t_len), among templates of T and
+    more than T chars, t_len 0, rl 0 and random reads."""
+    rng = np.random.default_rng(seed)
+    tpl = rng.integers(0, 4, (V, T)).astype(np.uint8)
+    t_lens = np.array([(0, 1, 2, 3, 5, 8, 12, T, T + 4, T // 2)[v % 10]
+                       for v in range(V)], np.int32)
+    reads = rng.integers(0, 4, (V, N, RL)).astype(np.uint8)
+    r_lens = rng.integers(0, RL + 1, (V, N)).astype(np.int32)
+    for v in range(V):
+        t = tpl[v, : min(t_lens[v], T)]
+        for n in range(N):
+            if n % 4 == 3 or not len(t):
+                continue
+            r = np.resize(t, r_lens[v, n] if n % 4 else min(RL, 2 * len(t)))
+            flip = rng.random(len(r)) < 0.1
+            r[flip] = rng.integers(0, 4, int(flip.sum()))
+            reads[v, n, : len(r)], r_lens[v, n] = r, len(r)
+    r_lens[::7, 0] = 0
+    return tpl, t_lens, reads, r_lens
+
+
+@pytest.mark.parametrize("W", [1, 31, 32, 33, 64, 65, 256])
+@pytest.mark.parametrize("global_ends", [False, True])
+def test_k3b_warp_model_equals_jax(W, global_ends):
+    """The numpy model of K3b's warp layout against ``_banded_nw_dist``
+    (tolerance 0), on pairs whose band shifts by more than 32 cells in a
+    row (a register move) and by less (a lane rotation alone)."""
+    V, N, T, RL = 20, 8, 24, 700
+    arrays = _steep_pairs(W + 100 * global_ends, V, N, T, RL)
+    tpl, t_lens, reads, r_lens = arrays
+    tl = t_lens[:, None].astype(np.int64)
+    offs = np.stack([_band_off(i, tl, r_lens.astype(np.int64), W)
+                     for i in range(T + 1)])
+    live = np.arange(1, T + 1)[:, None, None] <= np.minimum(tl, T)
+    s = np.diff(offs, axis=0)[np.broadcast_to(live, offs[1:].shape)]
+    assert (s > 32).any() and ((s > 0) & (s < 32)).any()
+    ref = np.asarray(C._banded_nw_dist(*map(jnp.asarray, arrays), T=T, W=W,
+                                       global_ends=global_ends))
+    # a one-cell band stays on the diagonal only where rl = t_len
+    assert (ref < C._INF).sum() > (V * N // 4 if W > 1 else 4)
+    assert (ref == C._INF).any()
+    np.testing.assert_array_equal(
+        _k3b_model(tpl, t_lens, reads, r_lens, T, W, global_ends), ref)

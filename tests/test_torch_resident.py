@@ -5,9 +5,9 @@
   ``_nw_window_round_resident_dense`` on a ``jnp`` arena of the same
   bytes.
 - K5 and :class:`DeviceStore`: ``store_write`` against
-  ``_arena_write_chunk``, and the store's bytes over ``[RESIDENT_PAD,
-  pos)`` against the JAX ``_Arena``'s after the same uploads, a reset
-  included.
+  ``_arena_write_chunk``, one ``store_write`` call per upload, and the
+  whole store's bytes against the JAX ``_Arena``'s after the same
+  uploads, a reset included.
 - ``consensus_batch`` in the default configuration (store-resident
   windows, sparse blocks) == with ``DENTIST_TPU_DENSE_CONS=1`` == the JAX
   package's, on the seven read sets of ``tests/test_sparse_transport.py``
@@ -114,7 +114,8 @@ def test_store_write_equals_jax_chunk():
 
 def test_device_store_bytes_equal_jax_arena(monkeypatch):
     """Same uploads into a 24 MiB port store and a 24 MiB JAX arena: the
-    same offsets, the same epoch (one reset) and the same bytes."""
+    same offsets, the same epoch (one reset) and the same bytes over the
+    whole store."""
     monkeypatch.setenv("DENTIST_TPU_ARENA_MB", "24")
     rng = np.random.default_rng(9)
     sizes = [1000, 70_001, 3_000_000, 5_000_003, 9_000_000, 123]
@@ -125,14 +126,50 @@ def test_device_store_bytes_equal_jax_arena(monkeypatch):
     for codes in uploads:
         assert store.offset_of(codes) == arena.offset_of(codes)
         assert (store.pos, store.epoch) == (arena.pos, arena.epoch)
-        got = store.array[TB.RESIDENT_PAD : store.pos].numpy()
-        np.testing.assert_array_equal(
-            got, np.asarray(arena.array)[B.RESIDENT_PAD : arena.pos])
+        np.testing.assert_array_equal(store.array.numpy(),
+                                      np.asarray(arena.array))
     assert store.epoch == 1, "the uploads must reset the store once"
     assert store.offset_of(uploads[-1]) == arena.offset_of(uploads[-1])  # cached
     with pytest.raises(MemoryError):
         store.offset_of(np.zeros(30 << 20, np.uint8))
 
+
+
+def test_device_store_one_write_per_upload_whole_store_equal(monkeypatch):
+    """One K5 call per upload, of the upload's own characters, and the
+    whole store, [0, capacity), equal to the JAX arena's after every
+    upload: uploads of 123 characters to more than one 4 Mi-char chunk
+    (the arena writes each upload's last chunk whole, its zero tail
+    reaching into the next regions; the port writes no tail), a reset,
+    an upload again after the reset and a cached re-upload."""
+    monkeypatch.setenv("DENTIST_TPU_ARENA_MB", "24")
+    calls = []
+    write = TB.store_write
+
+    def counted(packed, store, off):
+        calls.append((off, 4 * packed.numel()))
+        write(packed, store, off)
+
+    monkeypatch.setattr(TB, "store_write", counted)
+    rng = np.random.default_rng(12)
+    sizes = [123, 70_001, TB._ARENA_CHUNK + 1, 1000, 5_000_003, 13_000_000]
+    uploads = [rng.integers(0, 4, n).astype(np.uint8) for n in sizes]
+    arena = B._Arena()
+    store = TB.DeviceStore(torch.device("cpu"))
+    epochs = []
+    for codes in [*uploads, uploads[0], uploads[0]]:
+        n_calls = len(calls)
+        cached = store.keys.get(id(codes), (0, None))[1] is codes
+        off = store.offset_of(codes)
+        assert off == arena.offset_of(codes)
+        assert (store.pos, store.epoch) == (arena.pos, arena.epoch)
+        assert calls[n_calls:] == ([] if cached else
+                                   [(off, -(-len(codes) // 4) * 4)])
+        np.testing.assert_array_equal(store.array.numpy(),
+                                      np.asarray(arena.array))
+        epochs.append(store.epoch)
+    assert epochs == [0, 0, 0, 0, 0, 1, 1, 1], "one reset, at 13 M chars"
+    assert len(calls) == 7, "one write per upload, none for the cached one"
 
 def _seven_read_sets():
     rng = np.random.default_rng(7)
