@@ -11,7 +11,7 @@ repo).  Each source it holds is built with the package's flags, one
 ``nvcc`` each, all started together, before phase 3, and phase 3 checks
 that version's kernels equal to this one's and times them beside this
 one's in the same process, in turns (baseline, kernel, kernel,
-baseline): K1 and K1p, K2p and K2r, K3p, K3b, K4 and K4w, K5.
+baseline): K1 and K1p, K2p and K2r, K3p, K3f, K3b, K4 and K4w, K5.
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -25,12 +25,14 @@ Phases (any failure exits non-zero and prints no result line):
    full and windowed, K2r, K3 and K3p, K4 and K4w sparse and dense, K5,
    K3f and K3b free-shift and global), against its plain PyTorch version
    on the card, on seeded inputs at the main path's shapes (K3f at K3's,
-   K3b at a consensus round's).  The kernels are integer, so the tolerance is 0:
+   and besides with every t_len past T, on bytes of any value and at
+   V = 4096; K3b at a consensus round's).  The kernels are integer, so the tolerance is 0:
    every output must be equal.  Prints each mode's time beside its plain
    version's and its bound (the least time the card could take: bytes
    over HBM bandwidth or integer operations over the INT32 issue rate,
-   whichever is larger; K3 and K3p count 11 operations of their word
-   step per template row and 32 read columns).  K1 and K1p run after phase 5, at every (R, N)
+   whichever is larger; K3, K3p and K3f count 11 operations of their word
+   step per template row and 32 read columns, over the rows each answer
+   depends on).  K1 and K1p run after phase 5, at every (R, N)
    bucket pair it launched K1 at and at (1512, 128) and (13608, 1024),
    with their ratio to the bound (with ``--baseline``, the other K1 and
    K1p at those two pairs, on the same inputs).  K2, K2p
@@ -56,8 +58,9 @@ Phases (any failure exits non-zero and prints no result line):
    made (and the largest again at an unaligned offset), with its bytes,
    bound and their ratio; with ``--baseline``, the other K5 on the same
    upload in one launch.  K3b's four cases (free-shift and global, W =
-   64 and 65) are held with ``--baseline``'s K3b too.  K3, K3p, K3b, K4,
-   K4w and K5 are timed through their wrappers
+   64 and 65) and K3f's eight are held with ``--baseline``'s K3b and K3f
+   too; K3f's ptxas registers, stack and spills are logged beside its
+   cases.  K3, K3p, K3f, K3b, K4, K4w and K5 are timed through their wrappers
    as every kernel is, and besides by device time, their launches queued
    behind a sleep kernel (a launch through the wrapper takes longer on
    the host than the kernel on the card); the turns use device time.
@@ -210,20 +213,27 @@ PROFILE_CALLS = 3
 HBM_BYTES_PER_S = 3.35e12
 #: integer operations per cell or column that the bounds count, per
 #: kernel: the recurrence's compares, adds, mins and selects (K1 adds the
-#: score key and its max), or a packing's per-column work; K3f and K3b
-#: (cell DPs)
-OPS_PER_CELL = {"K1": 12, "K2": 10, "K3f": 6, "K4": 8, "K5": 3}
+#: score key and its max), or a packing's per-column work; K3b (a cell
+#: DP; K3f counts word rows as K3 does)
+OPS_PER_CELL = {"K1": 12, "K2": 10, "K3b": 6, "K4": 8, "K5": 3}
 #: INT32 operations of one K3 word step, a template row on 32 read
 #: columns: the match mask (1), the add with its carry (1), the
 #: recurrence's 7 logic operations (three-input LOP3s: Xv, Eq & Pv, Xh,
 #: Ph, Mh, Pv, Mv) and the two shifts (2).  Loads, loop control and the
 #: kernel's own code spread are not the function's work and are not
 #: counted; phase 2 prints the compiled row loop's SASS instructions
-#: beside this count (:func:`k3_sass_step`)
+#: beside this count (:func:`sass_row_steps`)
 K3_OPS_PER_WORD32 = 11
+#: INT32 operations a row that K3f's free-shift search adds to its word
+#: steps: D[i][rl] from the horizontal deltas at column rl (the two bits
+#: extracted, one three-input add) and the running minimum
+K3F_OPS_PER_SEARCH_ROW = 4
 #: template rows one pass of K3's row loop advances: ``myers`` takes a
 #: window's codes 16 at a time and unrolls their rows
 K3_ROWS_PER_LOOP = 16
+#: template rows one pass of K3f's row loop advances: ``walk_rows`` loads
+#: 8 template bytes at a time and unrolls their rows
+K3F_ROWS_PER_LOOP = 8
 #: how far a phase-3 K3 case's word rows and cells may stray from the
 #: per-launch average of the phase-5 bucket it stands for
 K3_CASE_MARGIN = 0.15
@@ -306,13 +316,17 @@ def bound(nbytes: float, ops: float) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def k3_sass_step(so: str) -> None:
-    """Print the instructions of K3's compiled word step, beside the
-    operations its bound counts (``K3_OPS_PER_WORD32``): the row loops
-    of ``nw_dist_kernel<true, 1>`` (the loops its SASS closes with a
-    backward branch, one per window) over the ``K3_ROWS_PER_LOOP`` rows
-    a pass advances, its 16-code template load included.  A diagnostic
-    only; fails where the toolkit has no ``cuobjdump``."""
+def sass_row_steps(so: str) -> None:
+    """Print the instructions of K3's and K3f's compiled word step, beside
+    the operations the bounds count (``K3_OPS_PER_WORD32``): the row
+    loops (those the SASS closes with a backward branch) of
+    ``nw_dist_kernel<true, 1>`` (one 64-bit word) over the
+    ``K3_ROWS_PER_LOOP`` rows a pass advances, its 16-code template load
+    included, and of ``nw_dist_full_kernel<true, 1>`` (global, one 32-bit
+    limb: its two-plane and eight-plane loops) over
+    ``K3F_ROWS_PER_LOOP``, the match and the 8-byte template load
+    included.  A diagnostic only; fails where the toolkit has no
+    ``cuobjdump``."""
     import re
 
     from dentist_tpu_torch import _build
@@ -320,26 +334,34 @@ def k3_sass_step(so: str) -> None:
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     if not os.path.exists(tool):
         fail(f"K3 word step: no {tool}")
-    sass = subprocess.run([tool, "-sass", so], capture_output=True, text=True,
-                          check=True).stdout
-    for fn in re.split(r"\n\s*Function : ", sass):
-        if not re.match(r"\S*nw_dist_kernelILb1ELi1E", fn):
-            continue
-        addrs = [int(a, 16) for a, op in re.findall(
-            r"/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;", fn)]
-        loops = [sum(int(t, 16) <= b <= int(a, 16) for b in addrs)
-                 for a, t in re.findall(r"/\*([0-9a-f]{4,})\*/[^;]*?\bBRA\s+(0x[0-9a-f]+)", fn)
-                 if int(t, 16) < int(a, 16)]
-        loops = [n for n in loops if n >= 4 * K3_ROWS_PER_LOOP]
-        if loops:
-            log(f"  K3 word step: {sum(loops) / len(loops) / K3_ROWS_PER_LOOP:.2f} "
-                f"SASS instructions a row on one 64-bit word (cuobjdump -sass: "
-                f"nw_dist_kernel<1, 1>'s row loops {loops} instructions for "
-                f"{K3_ROWS_PER_LOOP} rows each); the bound counts "
-                f"{2 * K3_OPS_PER_WORD32} operations, {K3_OPS_PER_WORD32} "
-                f"on each 32 read columns")
-            return
-    fail("K3 word step: no row loop in nw_dist_kernel<1, 1>'s SASS")
+    sass = re.split(r"\n\s*Function : ", subprocess.run(
+        [tool, "-sass", so], capture_output=True, text=True, check=True).stdout)
+    for what, kernel, rows, bits in (
+            ("K3", "nw_dist_kernel", K3_ROWS_PER_LOOP, 64),
+            ("K3f", "nw_dist_full_kernel", K3F_ROWS_PER_LOOP, 32)):
+        # the mangled name's length prefix ends in a digit: not K3b's
+        name = re.compile(rf"\S*\d{kernel}ILb1ELi1E")
+        for fn in sass:
+            if not name.match(fn):
+                continue
+            addrs = [int(a, 16) for a, op in re.findall(
+                r"/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;", fn)]
+            loops = [sum(int(t, 16) <= b <= int(a, 16) for b in addrs)
+                     for a, t in re.findall(
+                         r"/\*([0-9a-f]{4,})\*/[^;]*?\bBRA\s+(0x[0-9a-f]+)", fn)
+                     if int(t, 16) < int(a, 16)]
+            loops = [n for n in loops if n >= 4 * rows]
+            if loops:
+                log(f"  {what} word step: {sum(loops) / len(loops) / rows:.2f} "
+                    f"SASS instructions a row on one {bits}-bit word "
+                    f"(cuobjdump -sass: {kernel}<1, 1>'s row loops {loops} "
+                    f"instructions for {rows} rows each); the bound counts "
+                    f"{bits // 32 * K3_OPS_PER_WORD32} operations, "
+                    f"{K3_OPS_PER_WORD32} on each 32 read columns")
+                break
+        else:  # K3's count is the one PERF.md holds to; K3f's is a note
+            (fail if what == "K3" else log)(
+                f"{what} word step: no row loop in {kernel}<1, 1>'s SASS")
 
 
 def nbytes(*tensors) -> int:
@@ -365,7 +387,7 @@ def hold(what: str, kernel, plain, reps: int, work: dict) -> dict:
     st = {"err": err, "ms": cuda_ms(kernel, reps), "plain_ms": plain_ms,
           "out": got, **work}
     log(f"{what}: equal to plain (tolerance 0); kernel {st['ms']:.3f} ms, "
-        f"plain {plain_ms:.1f} ms, bound {st['bound_ms']:.4f} ms "
+        f"plain {plain_ms:.1f} ms, bound {st['bound_ms']:.6f} ms "
         f"({st['bound_by']})")
     return st
 
@@ -622,11 +644,15 @@ def resident_case(store, rng, N: int):
     return torch.from_numpy(meta).cuda()
 
 
-def scorer_case(rng, V: int, N: int, T: int, RL: int, over_slope: bool):
+def scorer_case(rng, V: int, N: int, T: int, RL: int, over_slope: bool,
+                past_t: bool = False, codes: int = 4):
     """K3f and K3b inputs on the general layout: template windows of T/2
     to T chars (one in seven a homopolymer), each against N noisy copies
     of itself; with ``over_slope`` one template in four is 32 to 64 chars
-    against reads of up to RL chars that repeat it (rl >> t_len)."""
+    against reads of up to RL chars that repeat it (rl >> t_len).  With
+    ``past_t`` every t_len is T + 1 to T + 8 (the template cut at T: no
+    row ends it, and K3f's free-shift search walks all T rows); chars
+    are bytes below ``codes`` (4: the codes 0..3; 256: any byte)."""
     import torch
 
     tpl = np.zeros((V, T), np.uint8)
@@ -636,38 +662,67 @@ def scorer_case(rng, V: int, N: int, T: int, RL: int, over_slope: bool):
     for v in range(V):
         short = over_slope and v % 4 == 3
         L = int(rng.integers(32, 65) if short else rng.integers(T // 2, T + 1))
-        t = (np.full(L, v % 4, np.uint8) if v % 7 == 0
-             else rng.integers(0, 4, L).astype(np.uint8))
+        if past_t:
+            L = T
+        t = (np.full(L, v % codes, np.uint8) if v % 7 == 0
+             else rng.integers(0, codes, L).astype(np.uint8))
         tpl[v, :L], t_lens[v] = t, L
+        if past_t:
+            t_lens[v] = T + 1 + int(rng.integers(0, 8))
         for n in range(N):
             r = np.concatenate([t] * (RL // L + 1))[: int(rng.integers(RL // 2, RL + 1))] \
                 if short else t.copy()
             flip = rng.random(len(r)) < 0.1
-            r[flip] = rng.integers(0, 4, int(flip.sum()))
+            r[flip] = rng.integers(0, codes, int(flip.sum()))
             r = r[:RL]
             reads[v, n, : len(r)], r_lens[v, n] = r, len(r)
     return [torch.from_numpy(a).cuda() for a in (tpl, t_lens, reads, r_lens)]
 
 
-def scorer_work(args, T: int, W=None) -> dict:
-    """K3f's and K3b's bound, from the cells each pair needs: on each of
-    its min(t_len, T) template rows, the read columns 0..rl (K3f), or
-    those of them inside the row's W-cell band (K3b, offsets as
-    ``consensus.py:2005-2007``); the inputs in, the distances out."""
+def k3b_work(args, T: int, W: int) -> dict:
+    """K3b's bound, from the cells each pair needs: on each of its
+    min(t_len, T) template rows, the read columns 0..rl inside the row's
+    W-cell band (offsets as ``consensus.py:2005-2007``); the inputs in,
+    the distances out."""
     tpl, t_lens, reads, r_lens = args
     RL = reads.shape[2]
     tl = t_lens.cpu().numpy().astype(np.int64)[:, None, None]  # (V, 1, 1)
     rl = np.minimum(r_lens.cpu().numpy().astype(np.int64), RL)[..., None]
     i = np.arange(1, T + 1)  # (T,)
-    if W is None:
-        per_row = rl + 1
-    else:
-        c = (i * rl) // np.maximum(tl, 1)
-        off = np.minimum(np.maximum(c - W // 2, -W // 2),
-                         np.maximum(rl - W // 2, 0))
-        per_row = np.minimum(off + W - 1, rl) - np.maximum(off, 0) + 1
+    c = (i * rl) // np.maximum(tl, 1)
+    off = np.minimum(np.maximum(c - W // 2, -W // 2),
+                     np.maximum(rl - W // 2, 0))
+    per_row = np.minimum(off + W - 1, rl) - np.maximum(off, 0) + 1
     cells = int((np.clip(per_row, 0, None) * (i <= tl)).sum())
-    return bound(nbytes(*args) + 4 * r_lens.numel(), OPS_PER_CELL["K3f"] * cells)
+    return bound(nbytes(*args) + 4 * r_lens.numel(), OPS_PER_CELL["K3b"] * cells)
+
+
+def k3f_work(args, T: int, global_ends: bool) -> dict:
+    """K3f's bound, as K3's: ``K3_OPS_PER_WORD32`` operations per word row
+    the answers depend on.  Global: min(t_len, T) rows x ceil(rl / 32)
+    a pair, none where t_len or rl is out of range or rl = 0.
+    Free-shift: none where JAX's recurrence fixes the answer
+    (1 <= t_len <= T and rl >= 0: 0; see ``csrc/nw_dist.cu``); T rows x
+    ceil(rl / 32), and ``K3F_OPS_PER_SEARCH_ROW`` a row, for t_len > T
+    and 1 <= rl <= RL.  Bytes: the lengths in and the distances out for
+    every pair, and the bytes the walked rows read: the template's rows
+    (once for its N pairs) and the read's rl bytes."""
+    tpl, t_lens, reads, r_lens = args
+    RL = reads.shape[2]
+    tl = t_lens.cpu().numpy().astype(np.int64)[:, None]  # (V, 1)
+    rl = r_lens.cpu().numpy().astype(np.int64)
+    words = (rl + 31) // 32
+    if global_ends:
+        rows = np.where((tl >= 1) & (tl <= T) & (rl >= 1) & (rl <= RL), tl, 0)
+        ops = K3_OPS_PER_WORD32 * rows * words
+    else:
+        rows = np.where((tl > T) & (rl >= 1) & (rl <= RL), T, 0)
+        ops = (K3_OPS_PER_WORD32 * words + K3F_OPS_PER_SEARCH_ROW) * rows
+    walked = rows > 0
+    moved = (nbytes(t_lens, r_lens) + 4 * r_lens.numel()
+             + int(rows.max(axis=1).sum()) + int(rl[walked].sum()))
+    return {**bound(moved, int(ops.sum())),
+            "word_rows": int((rows * words).sum()), "bytes": moved}
 
 
 def k3_counts(meta, TW: int, RW: int) -> dict:
@@ -772,12 +827,52 @@ def k3_case(rng, V: int, NB: int, TW: int, TWp: int, RW: int, live: int,
             torch.from_numpy(meta).cuda())
 
 
-def phase_kernels(nw_dist_old=None):
-    """Phase 3 at fixed shapes; with ``nw_dist_old`` (:func:`build_baselines`'
-    ``nw_dist.cu``), the other version's K3b checked equal and timed
-    beside this one's at each K3b case, in turns, by device time."""
+def hold_k3f(what: str, args, T: int, ends: bool, nw_dist_old) -> dict:
+    """K3f on ``args`` against its plain version (tolerance 0), with its
+    time through the wrapper, its device time with the launches queued,
+    its bound (:func:`k3f_work`) and both ratios, and the pairs that walk
+    rows; with ``nw_dist_old``, the other version's K3f checked equal and
+    timed beside it, in turns, by device time."""
     import torch
 
+    from dentist_tpu_torch.ops import nw_dist
+
+    V, N, RL = args[2].shape
+    work = k3f_work(args, T, ends)
+    kernel = lambda: nw_dist.nw_dist_full(*args, T=T, global_ends=ends)
+    st = hold(f"K3f nw_dist_full {what} T={T} RL={RL} global_ends={ends}",
+              kernel, lambda: nw_dist.nw_dist_full_reference(*args, T, ends),
+              10, work)
+    dev = cuda_ms_queued(kernel, 20)
+    log(f"  {work['word_rows']} word rows, {work['bytes']} bytes; "
+        f"{int((args[2] >= 4).sum())} read "
+        f"bytes >= 4; {st['ms'] / st['bound_ms']:.1f}x the bound through the "
+        f"wrapper; device {dev:.4f} ms (launches queued), "
+        f"{dev / st['bound_ms']:.1f}x the bound")
+    if nw_dist_old:
+        stream = torch.cuda.current_stream().cuda_stream
+        out = torch.empty_like(st["out"])
+        old = lambda: nw_dist_old["dentist_nw_dist_full"](
+            *(a.data_ptr() for a in args), out.data_ptr(), V, N, T, RL,
+            int(ends), stream)
+        old()
+        torch.cuda.synchronize()
+        if max_abs_err(out, st["out"]):
+            fail(f"K3f baseline != kernel at {what} global_ends={ends}")
+        log("  K3f baseline equal to the kernel")
+        turns(f"K3f {what} global_ends={ends} (device time, launches queued):",
+              kernel, old, 20, cuda_ms_queued)
+    return st
+
+
+def phase_kernels(nw_dist_old=None):
+    """Phase 3 at fixed shapes; with ``nw_dist_old`` (:func:`build_baselines`'
+    ``nw_dist.cu``), the other version's K3b and K3f checked equal and
+    timed beside this one's at each of their cases, in turns, by device
+    time."""
+    import torch
+
+    from dentist_tpu_torch import _build
     from dentist_tpu_torch.ops import banded, nw_dist, nw_round, round_pack
     from dentist_tpu_torch.ops.pack2 import pack2bit
 
@@ -916,14 +1011,10 @@ def phase_kernels(nw_dist_old=None):
     reset_launch_counts()
     k3f, k3b = {}, {}
     T, RL, V = 34, 48, 256
-    for N in (8, 32):
+    cases = []
+    for N in (8, 32):  # one draw a shape, both end modes on it
         args = scorer_case(rng, V, N, T, RL, False)
-        for ends in (False, True):
-            st = hold(f"K3f nw_dist_full V={V} N={N} global_ends={ends}",
-                      lambda: nw_dist.nw_dist_full(*args, T=T, global_ends=ends),
-                      lambda: nw_dist.nw_dist_full_reference(*args, T, ends), 10,
-                      scorer_work(args, T))
-            k3f = merge(k3f, st)
+        cases += [(f"V={V} N={N}", args, T, ends) for ends in (False, True)]
     T, RL, V, N = 512, 640, 64, 32
     args = scorer_case(rng, V, N, T, RL, True)
     stream = lambda: torch.cuda.current_stream().cuda_stream
@@ -934,7 +1025,7 @@ def phase_kernels(nw_dist_old=None):
             st = hold(f"K3b banded_nw_dist V={V} N={N} T={T} RL={RL} W={W} "
                       f"global_ends={ends}", kernel,
                       lambda: nw_dist.banded_nw_dist_reference(*args, T, W, ends),
-                      3, scorer_work(args, T, W))
+                      3, k3b_work(args, T, W))
             log(f"  {int((st['out'] < nw_dist.INF).sum())}/{V * N} pairs "
                 f"within the band")
             dev = cuda_ms_queued(kernel, 5)
@@ -954,8 +1045,24 @@ def phase_kernels(nw_dist_old=None):
                 log("  K3b baseline equal to the kernel")
                 turns(f"K3b W={W} global_ends={ends} (device time, launches "
                       f"queued):", kernel, old, 5, cuda_ms_queued)
+    # K3f beyond K3's shapes: the free-shift search on every pair (each
+    # t_len past T), bytes of any value (the eight-plane compare), and the
+    # card full (V = 4096)
+    rng_f = np.random.default_rng(2027)
+    T, RL = 34, 48
+    cases += [("V=256 N=32 t_len>T", scorer_case(rng_f, 256, 32, T, RL, False,
+                                                 past_t=True), T, False)]
+    args = scorer_case(rng_f, 256, 32, T, RL, False, codes=256)
+    cases += [("V=256 N=32 bytes", args, T, ends) for ends in (False, True)]
+    cases += [("V=4096 N=32", scorer_case(rng_f, 4096, 32, T, RL, False), T,
+               True)]
+    for line in ptxas_lines(_build.build_log):
+        if "nw_dist_full_kernel" in line:
+            log(f"  K3f ptxas: {line}")
+    for what, args, T, ends in cases:
+        k3f = merge(k3f, hold_k3f(what, args, T, ends, nw_dist_old))
     if not nw_dist_old:
-        log("  no nw_dist.cu in --baseline: no other K3b version timed")
+        log("  no nw_dist.cu in --baseline: no other K3b or K3f version timed")
     phase3 = launch_counts()
     rows.append(("K3f nw_dist_full", "dentist_tpu_torch/csrc/nw_dist.cu",
                  "dentist_tpu/ops/consensus.py:1936", "phase3", "K3f", k3f))
@@ -977,6 +1084,7 @@ BASELINE_ENTRIES = {
                     "dentist_nw_round_packed": (11, 8),
                     "dentist_nw_round_resident": (11, 9)},
     "nw_dist.cu": {"dentist_nw_dist": (3, 5), "dentist_nw_dist_packed": (3, 5),
+                   "dentist_nw_dist_full": (5, 5),
                    "dentist_banded_nw_dist": (5, 6)},
     "round_pack.cu": {"dentist_round_pack": (10, 6),
                       "dentist_window_pack": (7, 6)},
@@ -1145,7 +1253,7 @@ def turns(what: str, kernel, old, reps: int = 3, timer=cuda_ms) -> list:
     ms = [timer(old, reps), timer(kernel, reps), timer(kernel, reps),
           timer(old, reps)]
     log(f"  {what} baseline, kernel, kernel, baseline ms: "
-        f"{', '.join(f'{m:.3f}' for m in ms)}; kernel "
+        f"{', '.join(f'{m:.4f}' for m in ms)}; kernel "
         f"{(ms[0] + ms[3]) / (ms[1] + ms[2]):.2f}x faster")
     return ms
 
@@ -2082,7 +2190,7 @@ def main() -> None:
         f"(nvcc {_build.build_seconds:.1f} s)")
     for line in ptxas_lines(_build.build_log):
         log(f"  {line}")
-    k3_sass_step(_build.library()._name)
+    sass_row_steps(_build.library()._name)
 
     # 3. kernels against their plain versions (K1, K1p, K2, K2p, K2r, K3,
     # K3p, K4, K4w and K5 again after phase 5)

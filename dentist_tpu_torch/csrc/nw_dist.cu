@@ -55,8 +55,29 @@
 // start and end anywhere in the template and the template anywhere in the
 // read, at no cost).  No path of the JAX package calls them; they are
 // held against their plain versions only.
-// - K3f replaces consensus.py:_nw_dist_full, both end modes: one thread
-//   per pair walks a full-width row through local memory, RL <= 127.
+// - K3f replaces consensus.py:_nw_dist_full, both end modes, RL <= 127:
+//   K3's bit-parallel step on bytes compared whole.  One thread per (v, n)
+//   pair, consecutive n of one v (a warp's template loads are one
+//   broadcast address).  The read is ceil(RL / 32) 32-bit limbs (one to
+//   four) in eight bit planes (plane b holds bit b of each byte), decoded
+//   from aligned 4-byte loads by byte permutes and an 8 x 8 bit transpose
+//   per byte lane, about 80 operations per 32 bytes; bits at and past rl
+//   are 0.  Where every read byte of a warp is < 4 (a vote), the match
+//   mask of a template byte is K3's two-plane compare, empty for a byte
+//   >= 4; else it is the AND of eight plane compares.  Then K3's word
+//   step (word_step, shared, on 32-bit limbs): the add's carry runs
+//   across the limbs in one add.cc / addc chain, and the shifts take the
+//   limb below's top bit.  The vote and the limbs are measured: on the
+//   same inputs, eight planes always took 1.37x the vote's time at
+//   V = 4096 and 1.08-1.16x at V = 256 on codes; 64-bit words in place of
+//   the limbs took 1.15x on bytes at V = 256 (PERF.md section 6).  Global
+//   mode is K3's recurrence (top row and column 0 anchored); free-shift
+//   mode is the search form (both edges free: Pv = Mv = 0, nothing
+//   shifted in at column 0), D[i][rl] kept on every row from the
+//   horizontal deltas at column rl and folded into a running minimum.  JAX's own recurrence fixes the
+//   free-shift answer at 0 wherever 1 <= t_len <= T and rl >= 0 (see the
+//   kernel), so only pairs with t_len > T walk rows there.  Nothing is in
+//   local memory.
 // - K3b replaces consensus.py:_banded_nw_dist: one warp per pair, its
 //   W-cell band (W <= 256) in registers, cell p = 32 k + lane in register
 //   k < ceil(W / 32) of the lane; cells p >= W hold INF.  The band of row
@@ -75,8 +96,11 @@
 //   alike (the same address, the same values), which keeps the shift and
 //   its branches uniform; each register's read characters are 32
 //   adjacent bytes.  Nothing is in local memory.
-// K3f is bound by arithmetic: a few integer ops per DP cell on a few
-// bytes per row.  K3b's bound counts 6 operations a cell; the kernel
+// K3f is bound by integer issue as K3 is: 11 INT32 operations per
+// template row and 32 read columns (the free-shift search 4 more a row
+// for its running minimum); chip_smoke.py prints its compiled row loop's
+// SASS count beside K3's.  K3b's
+// bound counts 6 operations a cell; the kernel
 // issues a few dozen warp instructions per register and row for 32 cells,
 // and each row waits on the one before through a chain of dependent
 // shuffles (the rotation, the diagonal, five scan steps).
@@ -125,6 +149,101 @@ __device__ __forceinline__ uint32_t planes16(uint32_t w) {
   return x;
 }
 
+__device__ __forceinline__ int popc(uint32_t x) { return __popc(x); }
+__device__ __forceinline__ int popc(uint64_t x) { return __popcll(x); }
+
+// s = x + y over kWords words, the carry running upward: on 64-bit words
+// from compares (K3), on 32-bit limbs through one add.cc / addc chain
+// (K3f)
+template <int kWords>
+__device__ __forceinline__ void add_words(const uint64_t (&x)[kWords],
+                                          const uint64_t (&y)[kWords],
+                                          uint64_t (&s)[kWords]) {
+  uint64_t carry = 0;
+#pragma unroll
+  for (int q = 0; q < kWords; ++q) {
+    const uint64_t t = x[q] + y[q];
+    s[q] = t + carry;
+    carry = (uint64_t)(t < x[q]) | (uint64_t)(s[q] < t);
+  }
+}
+
+template <int kLimbs>
+__device__ __forceinline__ void add_words(const uint32_t (&x)[kLimbs],
+                                          const uint32_t (&y)[kLimbs],
+                                          uint32_t (&s)[kLimbs]) {
+  if constexpr (kLimbs == 1) {
+    s[0] = x[0] + y[0];
+  } else if constexpr (kLimbs == 2) {
+    asm("add.cc.u32 %0, %2, %4;\n\t"
+        "addc.u32 %1, %3, %5;"
+        : "=&r"(s[0]), "=&r"(s[1])
+        : "r"(x[0]), "r"(x[1]), "r"(y[0]), "r"(y[1]));
+  } else if constexpr (kLimbs == 3) {
+    asm("add.cc.u32 %0, %3, %6;\n\t"
+        "addc.cc.u32 %1, %4, %7;\n\t"
+        "addc.u32 %2, %5, %8;"
+        : "=&r"(s[0]), "=&r"(s[1]), "=&r"(s[2])
+        : "r"(x[0]), "r"(x[1]), "r"(x[2]), "r"(y[0]), "r"(y[1]), "r"(y[2]));
+  } else {
+    static_assert(kLimbs == 4, "reads of at most 128 bytes");
+    asm("add.cc.u32 %0, %4, %8;\n\t"
+        "addc.cc.u32 %1, %5, %9;\n\t"
+        "addc.cc.u32 %2, %6, %10;\n\t"
+        "addc.u32 %3, %7, %11;"
+        : "=&r"(s[0]), "=&r"(s[1]), "=&r"(s[2]), "=&r"(s[3])
+        : "r"(x[0]), "r"(x[1]), "r"(x[2]), "r"(x[3]), "r"(y[0]), "r"(y[1]),
+          "r"(y[2]), "r"(y[3]));
+  }
+}
+
+// One Myers/Hyyro word step over kWords words W (bit j: read column
+// j + 1), K3's and K3f's: row i - 1's vertical deltas pv / mv (+1 / -1
+// where D[i][j] - D[i][j-1] is) become row i's, from the row's match mask
+// eq.  The add's carry and the shifts run across the words.  ph_in is the
+// horizontal delta shifted in at column 0: 1 where D[i][0] = i (the
+// top-left anchored), 0 where D[i][0] = 0 (the search form).  ph / mh
+// return the row's horizontal deltas (+1 / -1 where D[i][j] - D[i-1][j]
+// is, at bit j - 1).
+template <typename W, int kWords>
+__device__ __forceinline__ void word_step(const W (&eq)[kWords],
+                                          W (&pv)[kWords], W (&mv)[kWords],
+                                          W ph_in, W (&ph)[kWords],
+                                          W (&mh)[kWords]) {
+  constexpr int kTop = 8 * sizeof(W) - 1;
+  W a[kWords], s[kWords], mh_in = 0;
+#pragma unroll
+  for (int q = 0; q < kWords; ++q) a[q] = eq[q] & pv[q];
+  add_words(a, pv, s);
+#pragma unroll
+  for (int q = 0; q < kWords; ++q) {
+    const W xv = eq[q] | mv[q];
+    const W xh = (s[q] ^ pv[q]) | eq[q];
+    ph[q] = mv[q] | ~(xh | pv[q]);
+    mh[q] = pv[q] & xh;
+    const W ph_s = (ph[q] << 1) | ph_in, mh_s = (mh[q] << 1) | mh_in;
+    ph_in = ph[q] >> kTop;
+    mh_in = mh[q] >> kTop;
+    pv[q] = mh_s | ~(xv | ph_s);
+    mv[q] = ph_s & xv;
+  }
+}
+
+// D[i][rl] - D[i][0]: the vertical deltas of the read's rl columns
+template <typename W, int kWords>
+__device__ __forceinline__ int vertical_sum(const W (&pv)[kWords],
+                                            const W (&mv)[kWords], int rl) {
+  constexpr int kBits = 8 * sizeof(W);
+  int d = 0;
+#pragma unroll
+  for (int q = 0; q < kWords; ++q) {
+    const int n = rl - kBits * q;  // the read's bits in this word
+    const W mask = n >= kBits ? ~W(0) : n > 0 ? (W(1) << n) - 1 : W(0);
+    d += popc(pv[q] & mask) - popc(mv[q] & mask);
+  }
+  return d;
+}
+
 // D[tl][rl] of the template at code t0 of row (1 <= tl, 1 <= rl) against
 // the read's planes: one word step per template row
 template <bool kPacked, int kWords>
@@ -144,35 +263,14 @@ __device__ __forceinline__ int myers(const uint8_t* __restrict__ row, int t0,
       // the code's high and low bits, each spread over a word (~0 or 0)
       const uint64_t b1 = (uint64_t)(int64_t)((int32_t)(w << (2 * k)) >> 31);
       const uint64_t b0 = (uint64_t)(int64_t)((int32_t)(w << (2 * k + 1)) >> 31);
-      uint64_t carry = 0, ph_in = 1, mh_in = 0;  // ph_in: D[i][0] = i
+      uint64_t eq[kWords], ph[kWords], mh[kWords];
 #pragma unroll
-      for (int q = 0; q < kWords; ++q) {
-        const uint64_t eq = ~(hi[q] ^ b1) & ~(lo[q] ^ b0);  // read[j] == code
-        const uint64_t xv = eq | mv[q];
-        const uint64_t a = eq & pv[q];
-        const uint64_t s = a + pv[q];
-        const uint64_t s2 = s + carry;
-        carry = (uint64_t)(s < a) | (uint64_t)(s2 < s);
-        const uint64_t xh = (s2 ^ pv[q]) | eq;
-        const uint64_t ph = mv[q] | ~(xh | pv[q]);
-        const uint64_t mh = pv[q] & xh;
-        const uint64_t ph_s = (ph << 1) | ph_in;
-        const uint64_t mh_s = (mh << 1) | mh_in;
-        ph_in = ph >> 63;
-        mh_in = mh >> 63;
-        pv[q] = mh_s | ~(xv | ph_s);
-        mv[q] = ph_s & xv;
-      }
+      for (int q = 0; q < kWords; ++q)
+        eq[q] = ~(hi[q] ^ b1) & ~(lo[q] ^ b0);  // read[j] == code
+      word_step(eq, pv, mv, uint64_t{1}, ph, mh);  // D[i][0] = i
     }
   }
-  int d = tl;  // D[tl][0]
-#pragma unroll
-  for (int q = 0; q < kWords; ++q) {
-    const int n = rl - 64 * q;  // the read's bits in this word
-    const uint64_t mask = n >= 64 ? ~0ull : n > 0 ? (1ull << n) - 1 : 0ull;
-    d += __popcll(pv[q] & mask) - __popcll(mv[q] & mask);
-  }
-  return d;
+  return tl + vertical_sum(pv, mv, rl);  // D[tl][0] = tl
 }
 
 template <bool kPacked, int kWords>
@@ -229,54 +327,197 @@ int launch_nw_dist(const void* buf, const void* meta, void* out, int V,
   return (int)cudaGetLastError();
 }
 
-// K3f: templates (V, T), reads (V, N, RL) -> out (V, N)
-template <bool kGlobal>
-__global__ void nw_dist_full_kernel(const uint8_t* __restrict__ tpl,
-                                    const int* __restrict__ t_lens,
-                                    const uint8_t* __restrict__ reads,
-                                    const int* __restrict__ read_lens,
-                                    int* __restrict__ out, int V, int N, int T,
-                                    int RL) {
-  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= (long long)V * N) return;
-  const int v = (int)(g / N);
-  const uint8_t* t = tpl + (size_t)v * T;
-  const uint8_t* rd = reads + (size_t)g * RL;
-  const int tl = t_lens[v];
-  const int rl = read_lens[g];
+// ---- K3f: the general layout, bytes compared whole, 32-bit limbs ----
 
-  uint8_t r[kRwMax];
-  int D[kRwMax + 1];
-  // cells past rl are INF on every row and feed only each other: the
-  // row loop stops at the read's end
-  const int jmax = rl < RL ? rl : RL;
-  for (int j = 0; j < jmax; ++j) r[j] = rd[j];
-  for (int j = 0; j <= RL; ++j) D[j] = j <= rl ? (kGlobal ? j : 0) : kInf;
-
-  int best = kInf;
-  const int rows = tl < T ? tl : T;  // rows past t_len are all INF
-  for (int i = 1; i <= rows; ++i) {
-    const int t_ch = t[i - 1];
-    int old_left = kInf;  // D of the previous row at j - 1
-    int run = kInf;       // min over q <= j of tmp[q] - q
-    int row_min = kInf;
-    for (int j = 0; j <= jmax; ++j) {
-      const int old = D[j];
-      const int diag = j >= 1 ? old_left + (r[j - 1] != t_ch) : kInf;
-      int up = old + 1;
-      if (!kGlobal && j == 0) up = min(up, 0);  // free leading template gap
-      const int tmp = min(diag, up);
-      run = min(run, tmp - j);
-      D[j] = min(min(tmp, run + j), kInf);
-      row_min = min(row_min, D[j]);
-      old_left = old;
+// 32 bytes of a read from byte k on (k a multiple of 32), as 8 bit
+// planes: bit j of pl[b] is bit b of byte k + j; bytes at and past n
+// (n > k) read as 0.  The bytes come from aligned 4-byte loads, only of
+// words that hold a byte below n, and a funnel shift; 16 byte
+// permutes gather r[q] = bytes q, 8 + q, 16 + q, 24 + q; then three
+// rounds of delta swaps transpose each byte lane's 8 x 8 bits.
+__device__ __forceinline__ void planes32(const uint8_t* __restrict__ rd, int k,
+                                         int n, uint32_t (&pl)[8]) {
+  const uintptr_t p = (uintptr_t)(rd + k);
+  const uint32_t* w = (const uint32_t*)(p & ~(uintptr_t)3);
+  const uintptr_t end = (uintptr_t)(rd + n);
+  const int sh = 8 * (int)(p & 3);
+  uint32_t x[9], b[8];
+#pragma unroll
+  for (int m = 0; m < 9; ++m) x[m] = (uintptr_t)(w + m) < end ? __ldg(w + m) : 0u;
+#pragma unroll
+  for (int m = 0; m < 8; ++m) b[m] = __funnelshift_r(x[m], x[m + 1], sh);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int q = 0; q < 4; q += 2) {
+      const uint32_t sel = q | (4 + q) << 4 | (q + 1) << 8 | (5 + q) << 12;
+      const uint32_t lo = __byte_perm(b[h], b[2 + h], sel);
+      const uint32_t hi = __byte_perm(b[4 + h], b[6 + h], sel);
+      pl[4 * h + q] = __byte_perm(lo, hi, 0x5410);
+      pl[4 * h + q + 1] = __byte_perm(lo, hi, 0x7632);
     }
-    // the read's end: on the template's last row, or (free-shift) any row
-    if ((!kGlobal || i == tl) && rl >= 0 && rl <= RL) best = min(best, D[rl]);
-    // free-shift: the template's end anywhere in the read
-    if (!kGlobal && i == tl) best = min(best, row_min);
   }
-  out[g] = best;
+  // bit 8 i + b of pl[q] is bit b of byte 8 i + q: swap q and b
+#pragma unroll
+  for (int d = 1; d < 8; d <<= 1) {
+    const uint32_t m = d == 1 ? 0x55555555u : d == 2 ? 0x33333333u : 0x0F0F0F0Fu;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      if (q & d) continue;
+      const uint32_t t = ((pl[q] >> d) ^ pl[q + d]) & m;
+      pl[q + d] ^= t;
+      pl[q] ^= t << d;
+    }
+  }
+  const int left = n - k;
+  const uint32_t keep = left >= 32 ? ~0u : (1u << left) - 1;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) pl[q] &= keep;
+}
+
+// the match mask of template byte c: bit j where read byte j == c.
+// kPlanes = 2 where every read byte of the warp is < 4 (planes 2..7 are
+// zero): two planes, and no bit for c >= 4; else all eight planes
+template <int kPlanes, int kLimbs>
+__device__ __forceinline__ void match(const uint32_t (&pl)[8][kLimbs],
+                                      uint32_t c, uint32_t (&eq)[kLimbs]) {
+  if constexpr (kPlanes == 2) {
+    const uint32_t s0 = 0u - (c & 1u), s1 = 0u - ((c >> 1) & 1u);
+    const uint32_t small = c < 4 ? ~0u : 0u;
+#pragma unroll
+    for (int l = 0; l < kLimbs; ++l)
+      eq[l] = ~(pl[0][l] ^ s0) & ~(pl[1][l] ^ s1) & small;
+  } else {
+    uint32_t s[8];
+#pragma unroll
+    for (int b = 0; b < 8; ++b) s[b] = 0u - ((c >> b) & 1u);
+#pragma unroll
+    for (int l = 0; l < kLimbs; ++l) {
+      uint32_t e = ~(pl[0][l] ^ s[0]);
+#pragma unroll
+      for (int b = 1; b < 8; ++b) e &= ~(pl[b][l] ^ s[b]);
+      eq[l] = e;
+    }
+  }
+}
+
+// D[i][rl] over template rows i of t (rows rows), the read's planes pl:
+// one Myers/Hyyro word step per row on kLimbs limbs.  kGlobal: the top
+// row and column 0 anchored (D[0][j] = j, D[i][0] = i; Pv = ~0, a +1
+// shifted in at column 0), the result D[tl][rl] after row tl = rows from
+// the vertical deltas of the read's rl columns.  Free-shift (the search
+// form): both edges free (D[0][j] = 0, D[i][0] = 0; Pv = Mv = 0, nothing
+// shifted in), the result min over rows of D[i][rl], kept from the
+// horizontal deltas at column rl (bit rl - 1 of Ph and Mh) with D[0][rl]
+// = 0.
+template <bool kGlobal, int kPlanes, int kLimbs>
+__device__ __forceinline__ int walk_rows(const uint8_t* __restrict__ t,
+                                         int rows, int rl,
+                                         const uint32_t (&pl)[8][kLimbs]) {
+  uint32_t pv[kLimbs], mv[kLimbs], at[kLimbs];
+#pragma unroll
+  for (int l = 0; l < kLimbs; ++l) {
+    pv[l] = kGlobal ? ~0u : 0u;
+    mv[l] = 0;
+    at[l] = ((rl - 1) >> 5) == l ? 1u << ((rl - 1) & 31) : 0u;  // column rl
+  }
+  int score = 0, best = kInf;
+  for (int i0 = 0; i0 < rows; i0 += 8) {
+    uint32_t c8[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) c8[k] = i0 + k < rows ? __ldg(t + i0 + k) : 0u;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      if (i0 + k >= rows) break;
+      uint32_t eq[kLimbs], ph[kLimbs], mh[kLimbs];
+      match<kPlanes>(pl, c8[k], eq);
+      word_step(eq, pv, mv, kGlobal ? 1u : 0u, ph, mh);
+      if constexpr (!kGlobal) {
+        uint32_t up = 0, down = 0;
+#pragma unroll
+        for (int l = 0; l < kLimbs; ++l) up |= ph[l] & at[l], down |= mh[l] & at[l];
+        score += (int)(up != 0) - (int)(down != 0);
+        best = min(best, score);
+      }
+    }
+  }
+  if constexpr (kGlobal) return rows + vertical_sum(pv, mv, rl);  // D[tl][0] = tl
+  return best;
+}
+
+// K3f: templates (V, T), reads (V, N, RL <= 32 kLimbs) -> out (V, N),
+// one thread per (v, n) pair
+template <bool kGlobal, int kLimbs>
+__global__ void __launch_bounds__(128)
+nw_dist_full_kernel(const uint8_t* __restrict__ tpl,
+                    const int* __restrict__ t_lens,
+                    const uint8_t* __restrict__ reads,
+                    const int* __restrict__ read_lens, int* __restrict__ out,
+                    int V, int N, int T, int RL) {
+  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool in = g < (long long)V * N;  // the rest of the warp votes
+  const int v = in ? (int)(g / N) : 0;
+  const int tl = in ? __ldg(t_lens + v) : 0;
+  const int rl = in ? __ldg(read_lens + g) : -1;
+  // the pair's value where it needs no row, or whether it walks rows
+  int d = kInf;
+  bool walk = false;
+  if (kGlobal) {  // D[tl][rl]: INF for tl outside [1, T], rl outside [0, RL]
+    if (tl >= 1 && tl <= T && rl >= 0 && rl <= RL) d = tl, walk = rl > 0;
+  } else if (tl >= 1 && rl >= 0) {
+    // The closed form: JAX clamps up[..., :1] to 0 (consensus.py:1963-1966),
+    // so D[i][0] = 0 on every row i <= t_len while rl >= 0, and its
+    // answer takes row t_len's minimum over every valid j, j = 0 among
+    // them (row_last, consensus.py:1977): 0 wherever row t_len exists.
+    // Past T no row is t_len, and the answer is min over rows 1..T of
+    // D[i][rl] (INF where rl > RL: no column is rl; 0 where rl = 0).
+    if (tl <= T)
+      d = 0;
+    else if (rl <= RL && T >= 1)
+      d = 0, walk = rl > 0;
+  }
+
+  uint32_t pl[8][kLimbs] = {};
+  if (walk) {
+    const uint8_t* rd = reads + (size_t)g * RL;
+#pragma unroll
+    for (int l = 0; l < kLimbs; ++l) {
+      if (32 * l >= rl) break;
+      uint32_t x[8];
+      planes32(rd, 32 * l, rl, x);
+#pragma unroll
+      for (int b = 0; b < 8; ++b) pl[b][l] = x[b];
+    }
+  }
+  uint32_t high = 0;
+#pragma unroll
+  for (int b = 2; b < 8; ++b)
+#pragma unroll
+    for (int l = 0; l < kLimbs; ++l) high |= pl[b][l];
+  const bool codes = __all_sync(0xffffffffu, high == 0);
+  if (walk) {
+    const uint8_t* t = tpl + (size_t)v * T;
+    const int rows = kGlobal ? tl : T;
+    d = codes ? walk_rows<kGlobal, 2>(t, rows, rl, pl)
+              : walk_rows<kGlobal, 8>(t, rows, rl, pl);
+  }
+  if (in) out[g] = d;
+}
+
+template <bool kGlobal>
+void launch_full(int limbs, unsigned blocks, cudaStream_t stream,
+                 const uint8_t* tpl, const int* t_lens, const uint8_t* reads,
+                 const int* read_lens, int* out, int V, int N, int T, int RL) {
+  void (*k)(const uint8_t*, const int*, const uint8_t*, const int*, int*,
+            int, int, int, int);
+  switch (limbs) {
+    case 1: k = nw_dist_full_kernel<kGlobal, 1>; break;
+    case 2: k = nw_dist_full_kernel<kGlobal, 2>; break;
+    case 3: k = nw_dist_full_kernel<kGlobal, 3>; break;
+    default: k = nw_dist_full_kernel<kGlobal, 4>; break;
+  }
+  k<<<blocks, 128, 0, stream>>>(tpl, t_lens, reads, read_lens, out, V, N, T,
+                                RL);
 }
 
 // Python's floor division for b > 0
@@ -456,13 +697,13 @@ extern "C" int dentist_nw_dist_full(const void* tpl, const void* t_lens,
                                     const void* reads, const void* read_lens,
                                     void* out, int V, int N, int T, int RL,
                                     int global_ends, void* stream) {
-  const long long total = (long long)V * N;
-  const int threads = 128;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  auto k = global_ends ? nw_dist_full_kernel<true> : nw_dist_full_kernel<false>;
-  k<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)tpl, (const int*)t_lens, (const uint8_t*)reads,
-      (const int*)read_lens, (int*)out, V, N, T, RL);
+  const long long pairs = (long long)V * N;
+  if (RL < 0 || RL > kRwMax || T < 0) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((pairs + 127) / 128);
+  auto launch = global_ends ? launch_full<true> : launch_full<false>;
+  launch(RL <= 32 ? 1 : (RL + 31) / 32, blocks, (cudaStream_t)stream,
+         (const uint8_t*)tpl, (const int*)t_lens, (const uint8_t*)reads,
+         (const int*)read_lens, (int*)out, V, N, T, RL);
   return (int)cudaGetLastError();
 }
 

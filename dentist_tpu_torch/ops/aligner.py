@@ -168,10 +168,13 @@ class Aligner:
         #: (codes, offsets) of the flat query store: enables the
         #: device-resident dispatch path, where extension windows are
         #: gathered from the device store instead of being assembled on
-        #: the host per lane.  Falls back to host windows without it and
-        #: under a group (each rank ships its own lanes).
+        #: the host per lane.  Falls back to host windows without it,
+        #: under a group (each rank ships its own lanes), or when disabled
+        #: (``DENTIST_TPU_NO_RESIDENT``).
         self._query_store = query_store
-        self._use_resident = query_store is not None and group is None
+        self._use_resident = (
+            query_store is not None and group is None
+            and not os.environ.get("DENTIST_TPU_NO_RESIDENT"))
         #: pending jobs keyed by (bucket, slope_bin)
         self._pending: dict[tuple[int, int], list[_Job]] = {}
         self._inflight: list[tuple[list[_Job], object]] = []  # async dispatches

@@ -22,7 +22,9 @@ in either end mode, and :func:`banded_nw_dist` (K3b) is
 is ``_nw_dist_pair_packed``), so no path of the port does either; each
 launches for CUDA tensors and runs its plain version
 (:func:`nw_dist_full_reference`, :func:`banded_nw_dist_reference`) for
-CPU tensors.
+CPU tensors.  K3f's kernel is K3's bit-parallel step on bytes compared
+whole (free-shift ends: Myers's search form), so it too agrees with its
+plain cell DP only because both are exact.
 """
 
 from __future__ import annotations

@@ -2,7 +2,9 @@
 
 Each kernel runs in its unpacked mode and in its 2-bit packed mode
 (K1p, K2p, K3p); K2r, K4 and K4w (both modes), K5, and K3f and K3b (both
-end modes) too.  K5 also at 16-byte, 4-byte and no alignment, an upload
+end modes) too.  K3f also at reads of 0 to 127 bytes (one to four 32-bit
+limbs) on codes and on bytes 0..255, reads off a 4-byte boundary, and
+t_len past T.  K5 also at 16-byte, 4-byte and no alignment, an upload
 of several chunks in one launch, and through the device store; K3b at
 band widths of 1 to 256 cells, bands that move more than 32 cells a row
 and reads of one char.  Skipped where there is no GPU (a CUDA kernel has no CPU or interpret
@@ -20,6 +22,7 @@ launch.
 import numpy as np
 import pytest
 import torch
+from k3f_pairs import k3f_pairs
 
 from dentist_tpu_torch.ops import banded as K1
 from dentist_tpu_torch.ops import nw_dist as K3
@@ -403,6 +406,34 @@ def test_nw_dist_full_kernel_equals_plain(cuda, global_ends):
     torch.cuda.synchronize()
     assert K3.full_launches == n0 + 1
     assert torch.equal(got, K3.nw_dist_full_reference(*args, T, global_ends))
+
+
+@pytest.mark.parametrize("RL", [0, 1, 63, 64, 65, 127])
+@pytest.mark.parametrize("global_ends", [False, True])
+def test_nw_dist_full_kernel_at_edges(cuda, RL, global_ends):
+    """K3f against its plain version at one to four 32-bit limbs (and no
+    read column), on codes and on bytes 0..255, reads starting 0 to 3
+    bytes off a 4-byte boundary; then with every t_len past T (the
+    free-shift search on every pair)."""
+    V, N, T = 64, 8, 40
+    tpl, t_lens, reads, r_lens = k3f_pairs(RL + 1000 * global_ends, V, N, T, RL)
+    for tl in (t_lens,) if global_ends else (t_lens, t_lens.clip(T + 1)):
+        args = [torch.from_numpy(a).to(cuda) for a in (tpl, tl, r_lens)]
+        want = None
+        for align in range(4):
+            flat = torch.zeros(align + reads.size, dtype=torch.uint8, device=cuda)
+            flat[align:] = torch.from_numpy(reads.reshape(-1))
+            rd = flat[align:].view(V, N, RL)
+            n0 = K3.full_launches
+            got = K3.nw_dist_full(args[0], args[1], rd, args[2], T=T,
+                                  global_ends=global_ends)
+            torch.cuda.synchronize()
+            assert K3.full_launches == n0 + 1
+            if want is None:
+                want = K3.nw_dist_full_reference(args[0], args[1], rd, args[2],
+                                                 T, global_ends)
+            assert torch.equal(got, want), (align, tl is t_lens)
+        assert (want < K3.INF).any()
 
 
 #: K3b's band widths: one cell, one register exactly and one cell more,

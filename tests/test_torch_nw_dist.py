@@ -17,6 +17,7 @@ from dentist_tpu.ops.banded import _pack2bit
 from dentist_tpu.sim.reads import _mutate
 from dentist_tpu_torch.errors import KernelError
 from dentist_tpu_torch.ops import nw_dist as K3
+from k3f_pairs import k3f_pairs
 
 
 def _pairs(seed, V, N, T, RL):
@@ -502,3 +503,235 @@ def test_k3b_warp_model_equals_jax(W, global_ends):
     assert (ref == C._INF).any()
     np.testing.assert_array_equal(
         _k3b_model(tpl, t_lens, reads, r_lens, T, W, global_ends), ref)
+
+
+# ----------------------------------------------------------------------
+# K3f's design, modelled in numpy: one thread per (v, n) pair, the read
+# as eight bit planes of ⌈RL/32⌉ uint32 limbs, decoded from aligned
+# 4-byte words by byte permutes and an 8 × 8 bit transpose; a warp whose
+# read bytes are all < 4 compares two planes, any other eight; each
+# template row one Myers/Hyyrö step with the add's carry and the shifts
+# running across the limbs; global mode anchored, free-shift mode the
+# search form with D[i][rl] kept from the horizontal deltas at column rl,
+# and 0 wherever JAX's recurrence fixes it.  The model follows
+# ``nw_dist_full_kernel`` in ``csrc/nw_dist.cu`` step by step and lies on
+# no path of the package.
+
+_U32 = np.uint64(0xFFFFFFFF)
+
+
+def _byte_perm(x, y, sel):
+    """``__byte_perm``: byte i of the result is byte ``sel``'s nibble i
+    of the 8 bytes {y:x}."""
+    out = np.zeros_like(x)
+    for i in range(4):
+        k = (sel >> (4 * i)) & 7
+        src = x if k < 4 else y
+        out |= ((src >> np.uint64(8 * (k & 3))) & np.uint64(0xFF)) << np.uint64(8 * i)
+    return out
+
+
+def _planes32(flat, start, n_end):
+    """``planes32``: the 8 planes of the 32 bytes at ``start`` in
+    ``flat`` (one start per pair), bytes at and past ``n_end`` as 0."""
+    a = start & ~3
+    sh = ((start & 3) * 8).astype(np.uint64)
+    x = []
+    for m in range(9):  # aligned words holding a byte below n_end
+        addr = a + 4 * m
+        word = np.zeros(len(start), np.uint64)
+        for q in range(4):
+            word |= flat[addr + q].astype(np.uint64) << np.uint64(8 * q)
+        x.append(np.where(addr < n_end, word, np.uint64(0)))
+    b = [((x[m + 1] << np.uint64(32) | x[m]) >> sh) & _U32 for m in range(8)]
+    pl = [None] * 8
+    for h in (0, 1):
+        for q in (0, 2):
+            sel = q | (4 + q) << 4 | (q + 1) << 8 | (5 + q) << 12
+            lo = _byte_perm(b[h], b[2 + h], sel)
+            hi = _byte_perm(b[4 + h], b[6 + h], sel)
+            pl[4 * h + q] = _byte_perm(lo, hi, 0x5410)
+            pl[4 * h + q + 1] = _byte_perm(lo, hi, 0x7632)
+    for d, m in ((1, 0x55555555), (2, 0x33333333), (4, 0x0F0F0F0F)):
+        d, m = np.uint64(d), np.uint64(m)
+        for q in range(8):
+            if q & int(d):
+                continue
+            t = ((pl[q] >> d) ^ pl[q + int(d)]) & m
+            pl[q + int(d)] = pl[q + int(d)] ^ t
+            pl[q] = (pl[q] ^ (t << d)) & _U32
+    left = np.clip(n_end - start, 0, 32).astype(np.uint64)
+    keep = (np.uint64(1) << left) - np.uint64(1)
+    return [p & keep for p in pl]
+
+
+def _k3f_model(tpl, t_lens, reads, r_lens, T, global_ends, align=0,
+               carry=True):
+    """(V, N) distances as K3f computes them, one thread per pair, and
+    each pair's plane count (2, 8, or 0 where it walks no row).
+    ``align``: the reads' first byte's offset from a 4-byte boundary;
+    ``carry=False`` drops what crosses a limb boundary (the add's carry,
+    the shifts' top bits)."""
+    V, N, RL = reads.shape
+    P, limbs = V * N, max(1, -(-RL // 32))
+    u = np.uint64
+    g = np.arange(P)
+    v = g // N
+    tl = t_lens[v].astype(np.int64)
+    rl = r_lens.reshape(-1).astype(np.int64)
+    # the reads at byte address align + g * RL, garbage around them
+    flat = np.concatenate([np.full(align, 0xA5, np.uint8), reads.reshape(-1),
+                           np.full(40, 0xA5, np.uint8)])
+    d = np.full(P, C._INF, np.int64)
+    if global_ends:
+        ok = (tl >= 1) & (tl <= T) & (rl >= 0) & (rl <= RL)
+        d = np.where(ok, tl, d)
+        walk = ok & (rl > 0)
+        rows = tl
+    else:
+        ok = (tl >= 1) & (rl >= 0)
+        d = np.where(ok & (tl <= T), 0, d)
+        past = ok & (tl > T) & (rl <= RL) & (T >= 1)
+        d = np.where(past, 0, d)
+        walk = past & (rl > 0)
+        rows = np.full(P, T)
+    pl = np.zeros((8, limbs, P), np.uint64)
+    for l in range(limbs):
+        x = _planes32(flat, align + g * RL + 32 * l, align + g * RL + rl)
+        for b in range(8):
+            pl[b, l] = np.where(walk & (32 * l < rl), x[b], u(0))
+    # the warp's vote; lanes past the last pair vote yes
+    high = np.bitwise_or.reduce(pl[2:].reshape(-1, P), axis=0)
+    high = np.concatenate([high, np.zeros(-P % 32, np.uint64)])
+    codes = np.repeat((high.reshape(-1, 32) == 0).all(1), 32)[:P]
+    ones = u(0xFFFFFFFF)
+    pv = np.full((limbs, P), ones if global_ends else u(0))
+    mv = np.zeros((limbs, P), np.uint64)
+    bit = rl - 1
+    at = [np.where((bit >> 5) == l, u(1) << (bit & 31).clip(0).astype(np.uint64),
+                   u(0)) for l in range(limbs)]
+    score = np.zeros(P, np.int64)
+    best = np.full(P, C._INF, np.int64)
+    for i in range(int(rows[walk].max(initial=0))):
+        live = walk & (i < rows)
+        c = tpl[v, min(i, tpl.shape[1] - 1)].astype(np.uint64)
+        s = [np.where((c >> u(b)) & u(1), ones, u(0)) for b in range(8)]
+        small = np.where(c < 4, ones, u(0))
+        eq = []
+        for l in range(limbs):
+            e2 = ~(pl[0, l] ^ s[0]) & ~(pl[1, l] ^ s[1]) & small & ones
+            e8 = ones
+            for b in range(8):
+                e8 = e8 & ~(pl[b, l] ^ s[b])
+            eq.append(np.where(codes, e2, e8 & ones))
+        cy = np.zeros(P, np.uint64)
+        ph_in = np.full(P, u(1 if global_ends else 0))
+        mh_in = np.zeros(P, np.uint64)
+        up = np.zeros(P, np.uint64)
+        down = np.zeros(P, np.uint64)
+        for l in range(limbs):
+            if not carry:
+                cy = np.zeros(P, np.uint64)
+                if l:
+                    ph_in = mh_in = np.zeros(P, np.uint64)
+            tot = (eq[l] & pv[l]) + pv[l] + cy
+            sl, cy = tot & ones, tot >> u(32)
+            xh = (sl ^ pv[l]) | eq[l]
+            ph = (mv[l] | ~(xh | pv[l])) & ones
+            mh = pv[l] & xh
+            up |= ph & at[l]
+            down |= mh & at[l]
+            ph_s = ((ph << u(1)) | ph_in) & ones
+            mh_s = ((mh << u(1)) | mh_in) & ones
+            ph_in, mh_in = ph >> u(31), mh >> u(31)
+            xv = eq[l] | mv[l]
+            pv[l] = np.where(live, (mh_s | ~(xv | ph_s)) & ones, pv[l])
+            mv[l] = np.where(live, ph_s & xv, mv[l])
+        score = np.where(live, score + (up != 0) - (down != 0), score)
+        best = np.where(live, np.minimum(best, score), best)
+    if global_ends:
+        end = tl.copy()
+        for l in range(limbs):
+            n = np.clip(rl - 32 * l, 0, 32).astype(np.uint64)
+            m = (u(1) << n) - u(1)
+            end += (np.bitwise_count(pv[l] & m).astype(np.int64)
+                    - np.bitwise_count(mv[l] & m).astype(np.int64))
+    else:
+        end = best
+    d = np.where(walk, end, d)
+    paths = np.where(walk, np.where(codes, 2, 8), 0)
+    return d.reshape(V, N).astype(np.int32), paths.reshape(V, N)
+
+
+def _jax_full(arrays, T, global_ends):
+    return np.asarray(C._nw_dist_full(*map(jnp.asarray, arrays), T=T,
+                                      global_ends=global_ends))
+
+
+@pytest.mark.parametrize("RL", [1, 63, 64, 65, 127])
+@pytest.mark.parametrize("global_ends", [False, True])
+def test_k3f_word_model_equals_jax(RL, global_ends):
+    """The numpy model of K3f's design against ``_nw_dist_full``
+    (tolerance 0) in both end modes: one to four limbs, bytes 0..255
+    and codes, reads at every alignment; warps of codes take the two
+    planes (garbage bytes ≥ 4 past rl notwithstanding), the others
+    eight; free-shift pairs walk rows only where t_len > T, and again
+    with every t_len past T (the search form on every pair).  With the
+    carry and shifts across limbs left out, the model is wrong."""
+    V, N, T = 32, 8, 20
+    arrays = k3f_pairs(RL * 10 + global_ends, V, N, T, RL)
+    ref = _jax_full(arrays, T, global_ends)
+    assert (ref < C._INF).sum() > V * N // 4 and (ref == C._INF).any()
+    for align in (0, 1, 2, 3):
+        got, paths = _k3f_model(*arrays, T, global_ends, align=align)
+        np.testing.assert_array_equal(got, ref)
+    walked = paths > 0
+    assert (paths[:4][walked[:4]] == 2).all()  # the codes warp
+    assert (paths[8:12][walked[8:12]] == 8).all()
+    if RL > 1:
+        assert (paths == 2).any() and (paths == 8).any()
+    if not global_ends:
+        assert (walked == (arrays[1] > T)[:, None] & (arrays[3] > 0)
+                & (arrays[3] <= RL)).all()
+        assert (ref[arrays[1] > T] > 0).any()
+        # the search form on every pair: every template past T
+        arrays = (arrays[0], arrays[1].clip(T + 1), *arrays[2:])
+        ref = _jax_full(arrays, T, global_ends)
+        got, paths = _k3f_model(*arrays, T, global_ends, align=RL % 4)
+        np.testing.assert_array_equal(got, ref)
+        assert (paths > 0).sum() > V * N // 3
+    if RL > 32:  # the carry and shifts across limbs are needed
+        bad, _ = _k3f_model(*arrays, T, global_ends, carry=False)
+        assert (bad != ref).any()
+
+
+def test_nw_dist_full_free_shift_premise():
+    """JAX's free-shift ``_nw_dist_full`` is 0 for every pair with
+    1 <= t_len <= T and rl >= 0 (rl up to RL + 5), whatever the bytes:
+    row t_len's minimum takes D[t_len][0] = 0.  Past T it is not always
+    0: the minimum over rows 1..T of D[i][rl]."""
+    V, N, T, RL = 32, 8, 20, 65
+    tpl, t_lens, reads, r_lens = k3f_pairs(7, V, N, T, RL)
+    rng = np.random.default_rng(8)
+    r_lens = rng.integers(0, RL + 6, (V, N)).astype(np.int32)
+    ref = _jax_full((tpl, t_lens, reads, r_lens), T, False)
+    inside = (t_lens >= 1) & (t_lens <= T)
+    assert inside.sum() > V // 2 and (t_lens > T).any()
+    assert (ref[inside] == 0).all()
+    assert (ref[t_lens > T] > 0).any()
+    assert (ref[t_lens < 1] == C._INF).all()
+
+
+@pytest.mark.parametrize("global_ends", [False, True])
+def test_nw_dist_full_bytes_equal_jax(global_ends):
+    """K3f's plain version on bytes 0..255 (and bytes that differ from
+    each other in high bits alone) against ``_nw_dist_full``, at K3f's
+    length edges; a CPU tensor does not launch the kernel."""
+    V, N, T, RL = 32, 8, 20, 65
+    arrays = k3f_pairs(9 + global_ends, V, N, T, RL)
+    assert (arrays[2] >= 4).any() and (arrays[0] >= 4).any()
+    ref = _jax_full(arrays, T, global_ends)
+    n0 = K3.full_launches
+    got = K3.nw_dist_full(*_torch(*arrays), T=T, global_ends=global_ends)
+    assert K3.full_launches == n0
+    np.testing.assert_array_equal(got.numpy(), ref)
