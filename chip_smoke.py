@@ -206,6 +206,30 @@ REPEATS_SHA256 = {
     "self.mask.npz": "06e6cd33cb9ed3e62b556aeff70dae0565a7f68cf70a70ccb9e048fe1468df93",
 }
 
+# Phase-13 constants: the JAX package's run of
+#   JAX_PLATFORMS=cpu DENTIST_TPU_FORCE_SINGLE=1 \
+#       python scripts/scaffolds_repeats_reference.py DIR
+# (x86-64 CPU, JAX on its CPU backend, 488 s): ``run_pipeline`` with read
+# coverage 20 and validation on the two files ``write_scenario(
+# scaffolds_repeats_scenario(), DIR)`` writes (sha256 below), then
+# ``_validation_pass`` on its result against ``unrelated_reads()``.  Its
+# validation purges one of the 8 closed gaps (contigs 9-10, a weak
+# window), so 7 stay closed, all 7 byte-exact; its repeat mask has 8
+# intervals and its dust mask none; against the unrelated reads it
+# purges all 7.
+SCAFFOLDS_INPUT_SHA256 = {
+    "assembly.fasta": "19658c623769fd650f63513388ad5ac26b25e145a07deda1ba59eda47e2c3fb2",
+    "reads.fasta": "6d8da960f9b0e8ce25f2be3d951e28ea196d5d244a68d11298b0de7468f01e19",
+}
+SCAFFOLDS_JAX_CLOSED = 7
+SCAFFOLDS_JAX_EXACT = 7
+SCAFFOLDS_JAX_SKIP = {(1, 2), (2, 3), (3, 4), (4, 5), (6, 7), (7, 8), (8, 9)}
+SCAFFOLDS_SHA256 = {
+    "out.fasta": "3d9bd61541e80579ef3d606d931f5cf7afc36dfbe93236ece9971f950b98318e",
+    "out.agp": "8123a907b96074fb265462bea297fdf9cada12d3b2a2212cc5240984e9a033ec",
+    "out.closed-gaps.bed": "43cee961c1845b46d08070395f5bba77bbd7271c50d05a68a74d5efc6b2432cd",
+}
+
 #: phase-6 runs: the later calls of a process, without its first-call costs
 PROFILE_CALLS = 3
 
@@ -1603,10 +1627,7 @@ def phase_e2e(tmp: str) -> None:
         cwd=HERE, env=env, capture_output=True, text=True, timeout=900)
     if proc.returncode != 0:
         fail(f"pipeline subprocess exited {proc.returncode}:\n{proc.stderr[-4000:]}")
-    for name, want in E2E_SHA256.items():
-        got = sha256(os.path.join(d, name))
-        if got != want:
-            fail(f"60 kb scenario: {name} sha256 {got} != JAX {want}")
+    check_hashes(d, "out", E2E_SHA256, "60 kb scenario")
     log(f"main path 60 kb / 3 gaps: FASTA, AGP and BED equal to the JAX "
         f"package's (sha256), {time.perf_counter() - t0:.1f} s")
 
@@ -1792,10 +1813,7 @@ def phase_a(tmp: str) -> dict:
         f"{sum(o % 16 == 0 for _, o in k5_uploads)}/{len(k5_uploads)}")
     if len(k5_uploads) != launches["K5"]:
         fail(f"{launches['K5']} K5 launches for {len(k5_uploads)} uploads")
-    for name, want in PHASE_A_SHA256.items():
-        got = sha256(os.path.join(d, name))
-        if got != want:
-            fail(f"3 Mb scenario: {name} sha256 {got} != JAX {want}")
+    check_hashes(d, "out", PHASE_A_SHA256, "3 Mb scenario")
     log("  FASTA, AGP and BED equal to the JAX package's (sha256)")
     # the default path: resident K1, packed full rounds (K2p) and polish
     # (K3p), store-resident windows (K2r), sparse blocks (K4, K4w), 2-bit
@@ -1808,7 +1826,7 @@ def phase_a(tmp: str) -> dict:
     if exact < PHASE_A_JAX_EXACT:
         fail(f"{exact} gaps closed byte-exact, JAX closes {PHASE_A_JAX_EXACT}")
     return (launches, sc, buckets, k2_buckets, k3_buckets, k4_buckets,
-            k5_uploads)
+            k5_uploads, wall)
 
 
 def consensus_sections(sections: dict) -> dict:
@@ -1852,11 +1870,8 @@ def phase_profile(tmp: str, calls: int) -> None:
                     _, out, wall = run_phase_a(d, asm, reads, f"_profile{i}")
             finally:
                 os.environ.pop("DENTIST_TPU_DENSE_CONS", None)
-            for name, want in PHASE_A_SHA256.items():
-                got = sha256(out[: -len("fasta")] + name[len("out."):])
-                if got != want:
-                    fail(f"3 Mb run {i} (dense={dense}): {name} sha256 {got} "
-                         f"!= JAX {want}")
+            check_hashes(d, os.path.basename(out)[: -len(".fasta")],
+                         PHASE_A_SHA256, f"3 Mb run {i} (dense={dense})")
             if last:
                 prof, default_sections = p, consensus_sections(sections._acc)
                 default_wall = wall
@@ -1896,11 +1911,14 @@ def phase_profile(tmp: str, calls: int) -> None:
         f"({dense_wall:.3f} s): {json.dumps(dense_sections)}")
 
 
-def check_e2e_hashes(d: str, what: str) -> None:
-    for name, want in E2E_SHA256.items():
-        got = sha256(os.path.join(d, name))
-        if got != want:
-            fail(f"{what}: {name} sha256 {got} != JAX {want}")
+def check_hashes(d: str, out: str, want: dict, what: str) -> None:
+    """The files a run wrote for the output path ``d/{out}.fasta`` (its
+    AGP and BED beside it) against ``want``, keyed by the ``out.*``
+    names (others, such as ``scaffolding.json``, as they are)."""
+    for name, digest in want.items():
+        got = sha256(os.path.join(d, name.replace("out", out, 1)))
+        if got != digest:
+            fail(f"{what}: {name} sha256 {got} != JAX {digest}")
 
 
 def phase_host_windows(tmp: str) -> dict:
@@ -1922,7 +1940,7 @@ def phase_host_windows(tmp: str) -> dict:
     finally:
         banded.reset_device_store()
     launches = launch_counts()
-    check_e2e_hashes(d, "60 kb scenario on host windows")
+    check_hashes(d, "out", E2E_SHA256, "60 kb scenario on host windows")
     log(f"host windows, 60 kb / 3 gaps, 1 MiB device store: FASTA, AGP and "
         f"BED equal to the JAX package's (sha256), "
         f"{time.perf_counter() - t0:.1f} s; kernel launches {json.dumps(launches)}")
@@ -1950,7 +1968,7 @@ def phase_two_ranks(tmp: str) -> None:
                                      PipelineConfig(read_coverage=20.0)), {},
                       n=2, devices=["cuda:0", "cuda:0"], backend="gloo",
                       pass_group=False, threads=4)
-    check_e2e_hashes(d, "60 kb scenario on two ranks")
+    check_hashes(d, "out", E2E_SHA256, "60 kb scenario on two ranks")
     for r in ranks:
         log(f"two ranks on one card, rank {r['rank']}: kernel launches "
             f"{json.dumps(r['launches'])}")
@@ -1994,7 +2012,7 @@ def phase_dense(tmp: str) -> dict:
     finally:
         os.environ.pop("DENTIST_TPU_DENSE_CONS", None)
     launches = launch_counts()
-    check_e2e_hashes(d, "60 kb scenario on the dense transport")
+    check_hashes(d, "out", E2E_SHA256, "60 kb scenario on the dense transport")
     log(f"dense transport, 60 kb / 3 gaps: FASTA, AGP and BED equal to the "
         f"JAX package's (sha256), {time.perf_counter() - t0:.1f} s; kernel "
         f"launches {json.dumps(launches)}")
@@ -2092,10 +2110,7 @@ def phase_staged(tmp: str, sc) -> None:
     for mode in ("K2p", "K2r", "K3p", "K4", "K4w", "K5"):
         if not process.get(mode):
             fail(f"staged process launched no {mode}: {process}")
-    for name, want in STAGED_SHA256.items():
-        got = sha256(os.path.join(d, name))
-        if got != want:
-            fail(f"staged workflow: {name} sha256 {got} != JAX {want}")
+    check_hashes(d, "out", STAGED_SHA256, "staged workflow")
     stats = json.loads(printed["check-results"])
     exact = closed_exactly_in(sc, os.path.join(d, "out.fasta"))
     log(f"staged workflow, 3 Mb / 16 gaps, {len(walls)} stages: {total:.1f} s; "
@@ -2107,6 +2122,7 @@ def phase_staged(tmp: str, sc) -> None:
              f"{STAGED_JAX_CLOSED}")
     if exact < STAGED_JAX_EXACT:
         fail(f"staged: {exact} gaps closed byte-exact, JAX {STAGED_JAX_EXACT}")
+    return walls
 
 
 def phase_repeats(tmp: str) -> None:
@@ -2142,6 +2158,175 @@ def phase_repeats(tmp: str) -> None:
             fail(f"repeats: {name} arrays sha256 {got} != JAX {want}")
     log(f"  tandem, self-alignment and self-coverage masks equal to the JAX "
         f"package's (arrays sha256)")
+
+
+def phase_resume(tmp: str, full_wall: float) -> None:
+    """Phase 5's 3 Mb call again in its own workdir, in this process:
+    (a) every artifact present, the stages that would recompute replaced
+    by functions that fail, and no kernel launched; (b) the insertions
+    and the skip list removed, so consensus and validation run again
+    from phase 5's masks, alignments and pile-ups."""
+    import torch
+
+    from dentist_tpu_torch import pipeline as pl
+
+    d = os.path.join(tmp, "phase_a")
+    asm, reads = (os.path.join(d, f) for f in ("assembly.fasta", "reads.fasta"))
+
+    def fails(*a, **k):
+        raise RuntimeError("a resumed run recomputed a stage")
+
+    def resumed(tag: str, stages: tuple):
+        saved = {name: getattr(pl, name) for name in stages}
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            for name in stages:
+                setattr(pl, name, fails)
+            pl.run_pipeline(asm, reads, os.path.join(d, f"{tag}.fasta"),
+                            pl.PipelineConfig(read_coverage=20.0,
+                                              workdir=os.path.join(d, "work")))
+            torch.cuda.synchronize()
+        finally:
+            for name, fn in saved.items():
+                setattr(pl, name, fn)
+        wall = time.perf_counter() - t0
+        check_hashes(d, tag, PHASE_A_SHA256, f"resume {tag}")
+        return wall, {k: v for k, v in launch_counts().items() if v}
+
+    wall, launches = resumed("out_resume_full", (
+        "masks_for", "collect_pile_ups", "process_pile_ups", "_validation_pass"))
+    log(f"resume 3 Mb, every artifact in phase 5's workdir: {wall:.2f} s "
+        f"(phase 5's full call {full_wall:.2f} s); FASTA, AGP and BED equal to "
+        f"the JAX package's (sha256); kernel launches {json.dumps(launches)}")
+    if launches:
+        fail(f"resume from a complete workdir launched kernels: {launches}")
+    for name in ("insertions.npz", "validation.json"):
+        os.remove(os.path.join(d, "work", name))
+    wall, launches = resumed("out_resume_collect", ("masks_for", "collect_pile_ups"))
+    log(f"resume 3 Mb after collect (insertions and skip list removed): "
+        f"{wall:.2f} s (phase 5's full call {full_wall:.2f} s); FASTA, AGP and "
+        f"BED equal to the JAX package's (sha256); kernel launches "
+        f"{json.dumps(launches)}")
+    for mode in ("K1", "K2p", "K2r", "K3p", "K4", "K4w", "K5"):
+        if not launches.get(mode):
+            fail(f"resume after collect launched no {mode}: {launches}")
+
+
+def phase_scaffolds(tmp: str) -> None:
+    """Two scaffolds cut from a 2 Mb genome with interspersed repeats,
+    through ``run_pipeline`` with validation, then its validation pass
+    against unrelated reads."""
+    import torch
+
+    from dentist_tpu_torch import pipeline as pl
+    from dentist_tpu_torch.io.store import load_mask
+    from dentist_tpu_torch.models.sequences import SeqStore
+    from dentist_tpu_torch.scenarios import (closed_exactly_in,
+                                             closed_gap_pairs,
+                                             scaffolds_repeats_scenario,
+                                             unrelated_reads, write_scenario)
+
+    d = os.path.join(tmp, "scaffolds")
+    sc = scaffolds_repeats_scenario()
+    asm, reads = write_scenario(sc, d)
+    for name, want in SCAFFOLDS_INPUT_SHA256.items():
+        if sha256(os.path.join(d, name)) != want:
+            fail(f"scaffolds: {name} sha256 {sha256(os.path.join(d, name))} != {want}")
+    # the K1 launches of each ``map_reads`` call: the first is the read
+    # mapping under the masks, the second the validation re-map
+    map_reads, mapped = pl.map_reads, []
+
+    def recorded(*a, **k):
+        before = launch_counts()
+        out = map_reads(*a, **k)
+        mapped.append({m: launch_counts()[m] - before[m] for m in ("K1", "K1p")})
+        return out
+
+    reset_launch_counts()
+    cfg = pl.PipelineConfig(read_coverage=20.0, workdir=os.path.join(d, "work"))
+    t0 = time.perf_counter()
+    pl.map_reads = recorded
+    try:
+        result = pl.run_pipeline(asm, reads, os.path.join(d, "out.fasta"), cfg)
+        torch.cuda.synchronize()
+    finally:
+        pl.map_reads = map_reads
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in launch_counts().items() if v}
+    masks = {name: load_mask(os.path.join(d, "work", f"{name}.mask.npz"))
+             for name in ("dust", "repeats")}
+    exact = closed_exactly_in(sc, os.path.join(d, "out.fasta"))
+    log(f"two scaffolds with repeats, 2 Mb / 8 gaps: {wall:.1f} s; gaps closed "
+        f"{result.n_closed_gaps} ({exact} byte-exact; JAX: {SCAFFOLDS_JAX_CLOSED} "
+        f"closed, {SCAFFOLDS_JAX_EXACT} byte-exact); mask intervals: dust "
+        f"{len(masks['dust'])}, repeats {len(masks['repeats'])}; K1 and K1p by "
+        f"map_reads call (mapping, validation): {mapped}; kernel launches "
+        f"{json.dumps(launches)}")
+    check_hashes(d, "out", SCAFFOLDS_SHA256, "two scaffolds with repeats")
+    log("  FASTA, AGP and BED equal to the JAX package's (sha256)")
+    if not len(masks["dust"] | masks["repeats"]):
+        fail("two scaffolds: the dust and repeat masks are empty")
+    if not mapped or not mapped[0]["K1"]:
+        fail(f"two scaffolds: the read mapping launched no K1: {mapped}")
+    if result.n_closed_gaps < SCAFFOLDS_JAX_CLOSED or exact < SCAFFOLDS_JAX_EXACT:
+        fail(f"two scaffolds: {result.n_closed_gaps} closed, {exact} byte-exact; "
+             f"JAX {SCAFFOLDS_JAX_CLOSED} and {SCAFFOLDS_JAX_EXACT}")
+    noise = unrelated_reads()
+    store = SeqStore(np.concatenate(noise), np.array([len(r) for r in noise]))
+    closed = closed_gap_pairs(result.bed_rows)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    skip = pl._validation_pass(result, noise, store, cfg)
+    torch.cuda.synchronize()
+    log(f"  validation against {len(noise)} unrelated reads: "
+        f"{time.perf_counter() - t0:.2f} s, purges {sorted(skip)}; kernel "
+        f"launches {json.dumps({k: v for k, v in launch_counts().items() if v})}")
+    if skip != SCAFFOLDS_JAX_SKIP or not closed <= skip:
+        fail(f"two scaffolds: unrelated reads purge {sorted(skip)}; JAX "
+             f"{sorted(SCAFFOLDS_JAX_SKIP)}, closed {sorted(closed)}")
+
+
+def phase_two_processes(tmp: str, staged_walls: dict) -> None:
+    """Phase 10's two ``process-pile-ups --batch`` stages again, as two
+    ``python -m dentist_tpu_torch`` processes on this card at once, then
+    ``merge-insertions``: the merged insertions must equal phase 10's."""
+    from dentist_tpu_torch import cli
+    from dentist_tpu_torch.scenarios import staged_commands
+
+    d = os.path.join(tmp, "staged")
+    stages = dict(staged_commands(d))
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    procs, outs = [], []
+    t0 = time.perf_counter()
+    for i, stage in enumerate(("process-0", "process-1")):
+        argv = list(stages[stage])
+        outs.append(os.path.join(d, f"insertions.2proc{i}.npz"))
+        argv[5] = outs[-1]
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "dentist_tpu_torch", *argv, "-q"], cwd=HERE,
+            env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True))
+    for p in procs:
+        try:
+            _, err = p.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            fail("two processes: a process-pile-ups batch ran past 600 s")
+        if p.returncode:
+            fail(f"two processes: process-pile-ups exited {p.returncode}:\n{err[-4000:]}")
+    pair = time.perf_counter() - t0
+    merged = os.path.join(d, "insertions.2proc.npz")
+    if cli.main(["merge-insertions", merged, *outs, "-q"]):
+        fail("two processes: merge-insertions failed")
+    seq = staged_walls["process-0"] + staged_walls["process-1"]
+    log(f"two processes on one card, process-pile-ups 0..8 and 8..99 at once: "
+        f"{pair:.2f} s (phase 10's two stages one after another in one "
+        f"process: {seq:.2f} s)")
+    if npz_sha256(merged) != npz_sha256(os.path.join(d, "insertions.npz")):
+        fail("two processes: merged insertions != phase 10's (arrays sha256)")
+    log("  merged insertions equal to phase 10's (arrays sha256)")
 
 
 def main() -> None:
@@ -2202,7 +2387,7 @@ def main() -> None:
         phase_e2e(tmp)
         # 5. main path at real size
         (launches, sc, buckets, k2_buckets, k3_buckets, k4_buckets,
-         k5_uploads) = phase_a(tmp)
+         k5_uploads, wall_a) = phase_a(tmp)
         # 3, K1, K1p, K2, K2p, K2r, K3, K3p, K4, K4w and K5: at the buckets
         # and upload sizes phase 5 launched
         rows = (phase_k1(buckets, baselines.get("extend.cu"))
@@ -2220,9 +2405,15 @@ def main() -> None:
         # 9. the dense consensus transport
         dense = phase_dense(tmp)
         # 10. the staged workflow through the command line
-        phase_staged(tmp, sc)
+        staged_walls = phase_staged(tmp, sc)
         # 11. the masking stages where there are repeats
         phase_repeats(tmp)
+        # 12. resume phase 5's call from its workdir
+        phase_resume(tmp, wall_a)
+        # 13. two scaffolds, reads over repeats, a validation purge
+        phase_scaffolds(tmp)
+        # 14. phase 10's two consensus batches as two processes at once
+        phase_two_processes(tmp, staged_walls)
 
     # each mode's launches in the run that drives it: phase 5 (the main
     # path), phase 7 for K1p, phase 9 for the dense K4 and K4w, phase 3

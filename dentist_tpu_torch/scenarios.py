@@ -1,6 +1,6 @@
 """Seeded simulated gap-closing scenarios, written to FASTA.
 
-Two scenarios drive the port end to end:
+Three scenarios drive the port end to end:
 
 - :func:`e2e_scenario` — the ``tests/test_e2e.py`` scenario: a 60 kb
   genome with 3 gaps of 80–300 bp and 20× reads of 10 kb ± 4 kb at 13 %
@@ -8,6 +8,10 @@ Two scenarios drive the port end to end:
 - :func:`phase_a_scenario` — the ``bench.py`` phase-A scenario: a 3 Mb
   genome with 16 gaps of 50–500 bp and 20× reads of 25 kb ± 12.5 kb at
   13 % error (seeds 123/124/125).
+- :func:`scaffolds_repeats_scenario` — two scaffolds cut from one 2 Mb
+  genome with interspersed repeats, 8 gaps of 100–1000 bp and phase A's
+  read model, so the masks that mapping, collect and process read are
+  not empty.
 
 Both are pure functions of their seeds, so the FASTA files
 :func:`write_scenario` and :func:`write_truth` produce are byte-identical
@@ -30,40 +34,62 @@ from .sim.partial import build_partial_assembly, random_gaps
 from .sim.reads import simulate_reads
 from .utils.regions import Region
 
-__all__ = ["Scenario", "e2e_scenario", "phase_a_scenario", "write_scenario",
+__all__ = ["Scenario", "e2e_scenario", "phase_a_scenario",
+           "scaffolds_repeats_scenario", "unrelated_reads", "write_scenario",
            "repeat_assembly", "write_truth", "staged_commands",
-           "closed_exactly",
-           "closed_exactly_in"]
+           "closed_exactly", "closed_exactly_in", "closed_gap_pairs"]
 
 
 @dataclass
 class Scenario:
-    truth: np.ndarray  # the one true scaffold (codes)
-    gaps: Region  # gap intervals punched into the truth
+    truths: list[np.ndarray]  # the true scaffolds (codes), one per record
+    gaps: Region  # gap intervals punched into the truths (tag: record)
     assembly: list[FastaRecord]  # the gapped assembly
     reads: list[np.ndarray]
 
 
-def _build(genome: int, n_gaps: int, min_gap: int, max_gap: int, margin: int,
-           mean_length: int, sd_length: int, seeds: tuple[int, int, int],
+def _build(truths: list[np.ndarray], n_gaps: int, min_gap: int, max_gap: int,
+           margin: int, mean_length: int, sd_length: int, seeds: tuple[int, int],
            ) -> Scenario:
-    truth = random_genome(genome, seed=seeds[0])
-    gaps = random_gaps([truth], n_gaps=n_gaps, min_size=min_gap,
-                       max_size=max_gap, margin=margin, seed=seeds[2])
-    asm = build_partial_assembly([truth], gaps)
+    """Gaps (seed ``seeds[1]``) punched into ``truths`` and 20x reads
+    (seed ``seeds[0]``) drawn from them at 13 % error."""
+    gaps = random_gaps(truths, n_gaps=n_gaps, min_size=min_gap,
+                       max_size=max_gap, margin=margin, seed=seeds[1])
+    asm = build_partial_assembly(truths, gaps)
     records = [FastaRecord(f"scaf{i}", s) for i, s in enumerate(asm)]
-    reads, _ = simulate_reads([truth], coverage=20, mean_length=mean_length,
-                              sd_length=sd_length, error=0.13, seed=seeds[1])
-    return Scenario(truth, gaps, records, reads)
+    reads, _ = simulate_reads(truths, coverage=20, mean_length=mean_length,
+                              sd_length=sd_length, error=0.13, seed=seeds[0])
+    return Scenario(truths, gaps, records, reads)
 
 
 def e2e_scenario() -> Scenario:
-    return _build(60_000, 3, 80, 300, 8000, 10_000, 4000, (50, 52, 51))
+    return _build([random_genome(60_000, seed=50)], 3, 80, 300, 8000,
+                  10_000, 4000, (52, 51))
 
 
 def phase_a_scenario() -> Scenario:
-    return _build(3_000_000, 16, 50, 500, 20_000, 25_000, 12_500,
-                  (123, 124, 125))
+    return _build([random_genome(3_000_000, seed=123)], 16, 50, 500, 20_000,
+                  25_000, 12_500, (124, 125))
+
+
+def scaffolds_repeats_scenario() -> Scenario:
+    """A 2 Mb random genome with 8 copies of a 3 kb repeat at 2 %
+    divergence (``insert_repeats`` as ``scripts/stress10.py`` plants
+    them), cut at 1.2 Mb into two true scaffolds, with 8 gaps of
+    100–1000 bp at a 50 kb margin and phase A's read model: 20x reads of
+    25 kb ± 12.5 kb at 13 % error (seeds 140/141/142/143)."""
+    g = random_genome(2_000_000, seed=140)
+    g = insert_repeats(g, n_copies=8, repeat_length=3000, seed=141)
+    return _build([g[:1_200_000], g[1_200_000:]], 8, 100, 1000, 50_000,
+                  25_000, 12_500, (143, 142))
+
+
+def unrelated_reads(n: int = 20, length: int = 9000, seed: int = 400
+                    ) -> list[np.ndarray]:
+    """``n`` random genomes of ``length`` bases (seeds ``seed``,
+    ``seed + 1``, ...): reads that support no closed gap, as
+    ``tests/test_validation_pass.py`` validates against."""
+    return [random_genome(length, seed=seed + i) for i in range(n)]
 
 
 def write_scenario(sc: Scenario, directory: str) -> tuple[str, str]:
@@ -98,10 +124,13 @@ def repeat_assembly(length: int, copies: int, seed: int = 60
 
 
 def write_truth(sc: Scenario, directory: str) -> str:
-    """Write the true genome as ``truth.fasta``; returns its path."""
+    """Write the true scaffolds as ``truth.fasta`` (one record ``truth``,
+    or ``truth1``, ``truth2``, ...); returns its path."""
     os.makedirs(directory, exist_ok=True)
     path = os.path.join(directory, "truth.fasta")
-    write_fasta(path, [("truth", codes_to_seq(sc.truth))])
+    names = (["truth"] if len(sc.truths) == 1
+             else [f"truth{i + 1}" for i in range(len(sc.truths))])
+    write_fasta(path, [(n, codes_to_seq(t)) for n, t in zip(names, sc.truths)])
     return path
 
 
@@ -159,8 +188,8 @@ def closed_exactly(sc: Scenario, out_seqs: list[np.ndarray],
     """Number of gaps whose true sequence, ``flank`` bp either side
     included, appears verbatim in one of the output scaffolds."""
     n = 0
-    for _, b, e in sc.gaps.iv:
-        window = sc.truth[b - flank : e + flank]
+    for sid, b, e in sc.gaps.iv:
+        window = sc.truths[sid][b - flank : e + flank]
         n += any(_contains(o, window) for o in out_seqs)
     return n
 
@@ -168,6 +197,15 @@ def closed_exactly(sc: Scenario, out_seqs: list[np.ndarray],
 def closed_exactly_in(sc: Scenario, fasta_path: str, flank: int = 500) -> int:
     """:func:`closed_exactly` over the scaffolds of an output FASTA."""
     return closed_exactly(sc, [r.codes for r in read_fasta(fasta_path)], flank)
+
+
+def closed_gap_pairs(bed_rows) -> set:
+    """The (contig id, contig id) pairs of the closed gaps that an
+    output's BED rows name (their ``contigIds=a-b`` field): the pairs a
+    validation pass purges."""
+    return {tuple(int(c) for c in f.split("=")[1].split("-"))
+            for row in bed_rows for f in row.split("\t")[3].split(";")
+            if f.startswith("contigIds=")}
 
 
 def _contains(haystack: np.ndarray, needle: np.ndarray) -> bool:

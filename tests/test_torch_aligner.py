@@ -18,6 +18,7 @@ from dentist_tpu_torch.device import set_device
 from dentist_tpu_torch.ops import aligner as PA
 from dentist_tpu_torch.ops import banded as PB
 from dentist_tpu_torch.ops import seeding as PS
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 _FIELDS = ("a_id", "b_id", "complement", "a_begin", "a_end", "b_begin",
            "b_end", "diffs", "trace_offsets", "trace_diffs", "trace_b_adv")

@@ -32,6 +32,7 @@ from dentist_tpu.sim.genome import random_genome
 from dentist_tpu_torch import cli as port_cli
 from dentist_tpu_torch import device as port_device
 from dentist_tpu_torch.scenarios import staged_commands
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 #: BED rows with DENTIST data comments (``bed2mask.d:229``) on the
 #: assembly's scaffold: contig pairs and read ids ride along as mask extras

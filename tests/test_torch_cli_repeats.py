@@ -23,6 +23,7 @@ from dentist_tpu_torch import cli as port_cli
 from dentist_tpu_torch.io.fasta import codes_to_seq, write_fasta
 from dentist_tpu_torch.io.store import load_alignments, load_mask
 from dentist_tpu_torch.scenarios import repeat_assembly, staged_commands
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 #: the masking stages of the staged workflow
 STAGES = staged_commands(".")[:4]

@@ -16,6 +16,7 @@ import dentist_tpu.ops.banded as B
 import dentist_tpu_torch.ops.banded as TB
 from dentist_tpu_torch.errors import KernelError
 from dentist_tpu_torch.ops.pack2 import pack2bit
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _offs(num_k, R, W):

@@ -18,6 +18,7 @@ from dentist_tpu.sim.reads import _mutate
 from dentist_tpu_torch.errors import KernelError
 from dentist_tpu_torch.ops import nw_dist as K3
 from k3f_pairs import k3f_pairs
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _pairs(seed, V, N, T, RL):

@@ -20,6 +20,7 @@ from dentist_tpu.ops import consensus as C
 from dentist_tpu.sim.reads import _mutate
 from dentist_tpu_torch.errors import KernelError
 from dentist_tpu_torch.ops import nw_round as K2
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 _jax_round = jax.jit(C._nw_round_parts,
                      static_argnames=("T", "W", "S", "NWIN", "lead_free"))

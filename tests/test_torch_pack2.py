@@ -26,6 +26,7 @@ from dentist_tpu_torch.ops import banded as TB
 from dentist_tpu_torch.ops import nw_dist as K3
 from dentist_tpu_torch.ops import nw_round as K2
 from dentist_tpu_torch.ops.pack2 import pack2bit, unpack2bit
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(params=["native", "numpy"])

@@ -22,6 +22,7 @@ from test_torch_slice import (JAX_CLOSE_GAPS_SHA256, close_gaps_digest,
 
 from dentist_tpu_torch.dryrun import run_ranks
 from dentist_tpu_torch.parallel import dp
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 _LAS_FIELDS = ("a_id", "b_id", "complement", "a_begin", "a_end", "b_begin",
                "b_end", "diffs", "trace_offsets", "trace_diffs", "trace_b_adv",

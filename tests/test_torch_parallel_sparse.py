@@ -16,6 +16,7 @@ from dentist_tpu_torch.device import set_device
 from dentist_tpu_torch.dryrun import run_ranks
 from dentist_tpu_torch.ops.consensus import consensus_batch
 from dentist_tpu_torch.sim.reads import _mutate
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def test_two_rank_sparse_consensus_equals_one_device(monkeypatch):

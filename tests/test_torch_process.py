@@ -18,6 +18,7 @@ import torch
 from dentist_tpu_torch.device import set_device
 from dentist_tpu_torch.errors import KernelError
 from dentist_tpu_torch.models import process as P
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

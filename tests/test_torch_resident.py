@@ -29,6 +29,7 @@ from dentist_tpu_torch.ops import banded as TB
 from dentist_tpu_torch.ops import nw_round as K2
 from dentist_tpu_torch.ops import round_pack as RP
 from dentist_tpu_torch.sim.reads import _mutate
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 W = 128
 

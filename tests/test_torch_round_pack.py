@@ -23,6 +23,7 @@ from dentist_tpu_torch.errors import KernelError
 from dentist_tpu_torch.ops import nw_round as K2
 from dentist_tpu_torch.ops import round_pack as RP
 from dentist_tpu_torch.ops.pack2 import pack2bit
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 W = 128
 ERRORS = (0.05, 0.13, 0.25)

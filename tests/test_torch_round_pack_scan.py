@@ -35,6 +35,7 @@ import torch
 from dentist_tpu.ops import consensus as C
 from dentist_tpu_torch.ops import round_pack as RP
 from dentist_tpu_torch.ops.pack2 import pack2bit
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 COLS = 4            # columns a thread holds (kCols)
 MAX_THREADS = 1024  # threads of a lane's CTA (kMaxThreads)

@@ -1,0 +1,73 @@
+"""The port's entry points besides ``python -m dentist_tpu_torch``: the
+``dentist-tpu-torch`` console script and the two port scripts
+(``scripts/stress_torch.py``, ``scripts/demo_2proc_torch.py``), which
+import nothing of JAX or the JAX package and refuse to run on a machine
+without a GPU unless the CPU is asked for (their imports all come
+before the device is chosen, so the refusal also runs every import with
+JAX blocked)."""
+
+import importlib
+import os
+import subprocess
+import sys
+import tomllib
+
+import pytest
+from test_torch_no_jax import _BLOCK_JAX, _BLOCKED, ROOT, _imported_packages
+
+_SCRIPTS = ("stress_torch", "demo_2proc_torch")
+
+
+def test_console_script_is_the_port_cli():
+    with open(os.path.join(ROOT, "pyproject.toml"), "rb") as fh:
+        scripts = tomllib.load(fh)["project"]["scripts"]
+    module, _, attr = scripts["dentist-tpu-torch"].partition(":")
+    assert module == "dentist_tpu_torch.cli"
+    from dentist_tpu_torch import cli
+
+    assert getattr(importlib.import_module(module), attr) is cli.main
+    assert scripts["dentist-tpu"] == "dentist_tpu.cli:main"
+
+
+@pytest.mark.parametrize("name", _SCRIPTS)
+def test_port_script_imports_without_jax(name):
+    path = os.path.join(ROOT, "scripts", f"{name}.py")
+    text = open(path).read()
+    assert not _imported_packages(text) & set(_BLOCKED)
+    assert "dentist_tpu." not in text.replace("dentist_tpu_torch.", "")
+    code = _BLOCK_JAX + f"""
+import runpy
+runpy.run_path({path!r}, run_name="imported")
+import dentist_tpu_torch.pipeline, dentist_tpu_torch.eval.check_results
+assert not any(_is_blocked(m) for m in sys.modules)
+print("imported")
+"""
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          env=dict(os.environ, PYTHONPATH=ROOT),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "imported" in proc.stdout
+
+
+@pytest.mark.parametrize("name", _SCRIPTS)
+def test_port_script_refuses_without_gpu(name, tmp_path):
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the script would run for real")
+    path = os.path.join(ROOT, "scripts", f"{name}.py")
+    code = _BLOCK_JAX + f"""
+import runpy
+sys.argv = [{path!r}, "--mb=1"]
+try:
+    runpy.run_path({path!r}, run_name="__main__")
+finally:
+    assert not any(_is_blocked(m) for m in sys.modules)
+"""
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                          env=dict(os.environ, PYTHONPATH=ROOT),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+    assert "is blocked" not in proc.stderr
+    assert not proc.stdout and not os.listdir(tmp_path)

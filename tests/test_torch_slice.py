@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 from dentist_tpu_torch.device import set_device
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(autouse=True)
