@@ -122,6 +122,24 @@ Phases (any failure exits non-zero and prints no result line):
    self-alignments as the JAX package, and the tandem mask, the
    self-alignments and the self-coverage mask must hash (array by array)
    to the JAX package's.
+12. Resume: phase 5's call again from its workdir, complete (no launch)
+   and with the insertions and skip list removed (consensus and
+   validation again); both must hash as phase 5.
+13. Two scaffolds with repeats: ``scenarios.scaffolds_repeats_scenario()``
+   through ``run_pipeline`` with validation, against the hashes and
+   counts of the JAX package's run, then its validation pass against
+   unrelated reads, which must purge as JAX's does.
+14. Two processes: phase 10's two ``process-pile-ups --batch`` stages as
+   two processes on the card at once; the merged insertions must equal
+   phase 10's.
+15. Scripts: ``scripts/profile_e2e_torch.py --small`` (phase C's model at
+   3 Mb, one call), ``scripts/profile_process_torch.py`` and
+   ``scripts/bench_consensus_kernel_torch.py`` as processes on the card;
+   each must exit 0 and print its JSON line, the first must close and
+   close byte-exact (``check_results``) at least as many gaps as the JAX
+   package's run of the same scenario and, like the second, launch every
+   kernel of the main path, and the bench must take every shape, equal
+   to its plain version where it holds it.
 
 The last lines of standard output are the card's ``nvidia-smi`` line,
 the kernels' JSON record and ``{"ok": true, "device": {...}}``.  The
@@ -229,6 +247,20 @@ SCAFFOLDS_SHA256 = {
     "out.agp": "8123a907b96074fb265462bea297fdf9cada12d3b2a2212cc5240984e9a033ec",
     "out.closed-gaps.bed": "43cee961c1845b46d08070395f5bba77bbd7271c50d05a68a74d5efc6b2432cd",
 }
+
+# Phase-15 constants: the JAX package's run of
+#   JAX_PLATFORMS=cpu DENTIST_TPU_FORCE_SINGLE=1 \
+#       python scripts/phase_c_small_reference.py DIR
+# (x86-64 CPU, JAX on its CPU backend, 599 s): ``python -m dentist_tpu.cli
+# pipeline`` with read coverage 20 on the files ``write_scenario(
+# phase_c_scenario(mb=3, n_gaps=16), DIR)`` writes (assembly.fasta sha256
+# 6a0139e9..., reads.fasta ec54085a...), then ``check-results`` against
+# ``write_truth``'s truth: 16 gaps closed, 16 correct (out.fasta sha256
+# 68fcc273...).
+PHASE_C_SMALL_JAX_CLOSED = 16
+PHASE_C_SMALL_JAX_CORRECT = 16
+#: the kernels of the main path, which phase 15's pipeline runs must launch
+MAIN_PATH_KERNELS = ("K1", "K2p", "K2r", "K3p", "K4", "K4w", "K5")
 
 #: phase-6 runs: the later calls of a process, without its first-call costs
 PROFILE_CALLS = 3
@@ -1845,9 +1877,9 @@ def phase_profile(tmp: str, calls: int) -> None:
     default call and of the dense call are printed side by side."""
     import contextlib
 
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from dentist_tpu_torch.device import device_busy
     from dentist_tpu_torch.ops import pack2
     from dentist_tpu_torch.utils import prof as sections
 
@@ -1884,25 +1916,15 @@ def phase_profile(tmp: str, calls: int) -> None:
         sections.ENABLED = False
         sections._acc.clear()
     walls.append(default_wall)
-    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not dev:
+    busy_ms, by_name = device_busy(prof)
+    if not by_name:
         fail("torch.profiler recorded no device activity")
-    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
-    busy_us, end = 0.0, float("-inf")
-    for a, b in spans:
-        busy_us += max(0.0, b - max(a, end))
-        end = max(end, b)
-    by_name: dict[str, list] = {}
-    for e in dev:
-        row = by_name.setdefault(e.name, [0.0, 0])
-        row[0] += e.time_range.end - e.time_range.start
-        row[1] += 1
     log(f"profile: {calls} more 3 Mb runs, wall s "
         f"{json.dumps([round(w, 3) for w in walls])}; the last under torch.profiler")
-    log(f"  device busy {busy_us / 1e3:.1f} ms of {walls[-1]:.3f} s "
-        f"({100 * busy_us / 1e6 / walls[-1]:.2f} %)")
-    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]):
-        log(f"  {us / 1e3:10.3f} ms {n:6d}x  {name[:90]}")
+    log(f"  device busy {busy_ms:.1f} ms of {walls[-1]:.3f} s "
+        f"({100 * busy_ms / 1e3 / walls[-1]:.2f} %)")
+    for name, (ms, n) in by_name.items():
+        log(f"  {ms:10.3f} ms {n:6d}x  {name[:90]}")
     log(f"  host 2-bit packing in the profiled run: {pack_ms:.1f} ms "
         f"over {pack_calls} calls")
     log(f"consensus sections [s, hits, bytes], default transport "
@@ -2329,6 +2351,59 @@ def phase_two_processes(tmp: str, staged_walls: dict) -> None:
     log("  merged insertions equal to phase 10's (arrays sha256)")
 
 
+def run_script(name: str, *args: str) -> dict:
+    """``scripts/<name>.py`` with ``args`` as a process on this card: it
+    must exit 0 within 600 s; returns the JSON object of its last line."""
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, os.path.join(HERE, "scripts", f"{name}.py"),
+                               *args], cwd=HERE, env=env, capture_output=True,
+                              text=True, timeout=600)
+    except subprocess.TimeoutExpired:
+        fail(f"scripts: {name} ran past 600 s")
+    if proc.returncode:
+        fail(f"scripts: {name} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    try:
+        out = json.loads(proc.stdout.strip().splitlines()[-1])
+    except (IndexError, json.JSONDecodeError):
+        fail(f"scripts: {name} printed no JSON line:\n{proc.stdout[-2000:]}")
+    log(f"{name} {' '.join(args)}: exit 0 in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def phase_scripts() -> None:
+    """The ported profiling and bench scripts as processes on the card."""
+    e2e = run_script("profile_e2e_torch", "--small", "--calls", "1")
+    call = e2e["calls"][0]
+    log(f"  phase C at 3 Mb / {e2e['scenario']['n_gaps']} gaps: {call['wall_s']:.2f} s, "
+        f"{e2e['numClosedGaps']} closed, {e2e['numCorrectGaps']} correct (JAX: "
+        f"{PHASE_C_SMALL_JAX_CLOSED}, {PHASE_C_SMALL_JAX_CORRECT}); busy "
+        f"{call['busy']['ms']:.1f} ms; launches {json.dumps(call['launches'])}")
+    if (e2e["numClosedGaps"] < PHASE_C_SMALL_JAX_CLOSED
+            or e2e["numCorrectGaps"] < PHASE_C_SMALL_JAX_CORRECT):
+        fail(f"scripts: profile_e2e_torch --small closed {e2e['numClosedGaps']} "
+             f"({e2e['numCorrectGaps']} correct); JAX {PHASE_C_SMALL_JAX_CLOSED} "
+             f"({PHASE_C_SMALL_JAX_CORRECT})")
+    proc = run_script("profile_process_torch")
+    log(f"  process on phase A: {json.dumps([round(w, 2) for w in proc['process_seconds']])} s, "
+        f"sampled {proc['sampled_process_seconds']:.2f} s; launches "
+        f"{json.dumps(proc['launches'])}")
+    for what, launches, modes in (("profile_e2e_torch", call["launches"], MAIN_PATH_KERNELS),
+                                  ("profile_process_torch", proc["launches"],
+                                   MAIN_PATH_KERNELS[1:])):
+        if not all(launches.get(m) for m in modes):
+            fail(f"scripts: {what} launched not every kernel of {modes}: {launches}")
+    bench = run_script("bench_consensus_kernel_torch", "--reps", "3")
+    for row in bench["shapes"]:
+        log(f"  K2p T={row['T']} RL={row['RL']} N={row['N']}: "
+            + (row["refused"] if "refused" in row else
+               f"full {row['full_ms']:.3f} ms, scan {row['scan_ms']:.3f} ms"
+               + (f", max_abs_err {row['max_abs_err']}" if "max_abs_err" in row else "")))
+        if "refused" in row or row.get("max_abs_err", 0):
+            fail(f"scripts: the K2p bench failed at T={row['T']} N={row['N']}")
+
+
 def main() -> None:
     import argparse
 
@@ -2348,16 +2423,14 @@ def main() -> None:
         fail("no CUDA device: this script runs the port on an NVIDIA GPU")
     try:
         from dentist_tpu_torch import _build
-        from dentist_tpu_torch.device import require_cuda, set_device
+        from dentist_tpu_torch.device import card_line, require_cuda, set_device
     except ImportError as exc:
         fail(f"dentist_tpu_torch is not importable next to this script: {exc}")
 
     # 1. device
     require_cuda()
     set_device("cuda")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
+    smi = card_line()
     log(smi)
     global INT_OPS_PER_S
     clock_mhz = float(subprocess.run(
@@ -2414,6 +2487,8 @@ def main() -> None:
         phase_scaffolds(tmp)
         # 14. phase 10's two consensus batches as two processes at once
         phase_two_processes(tmp, staged_walls)
+    # 15. the profiling and bench scripts as processes on the card
+    phase_scripts()
 
     # each mode's launches in the run that drives it: phase 5 (the main
     # path), phase 7 for K1p, phase 9 for the dense K4 and K4w, phase 3

@@ -12,7 +12,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["set_device", "get_device", "require_cuda"]
+__all__ = ["set_device", "get_device", "require_cuda", "card_line",
+           "device_busy"]
 
 _DEVICE: torch.device | None = None
 
@@ -44,3 +45,31 @@ def get_device() -> torch.device:
         raise RuntimeError("no device chosen: call "
                            "dentist_tpu_torch.device.set_device first")
     return _DEVICE
+
+
+def card_line() -> str:
+    """The card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them
+    (its first card)."""
+    import subprocess
+
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def device_busy(prof) -> tuple[float, dict]:
+    """The card's busy milliseconds in a ``torch.profiler`` run (the union
+    of the intervals of its kernels and copies) and the milliseconds and
+    count of each by name."""
+    spans = [(e.time_range.start / 1e3, e.time_range.end / 1e3, e.name)
+             for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy, end, by_name = 0.0, float("-inf"), {}
+    for a, b, name in sorted(spans):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+        row = by_name.setdefault(name, [0.0, 0])
+        row[0] += b - a
+        row[1] += 1
+    return busy, dict(sorted(by_name.items(), key=lambda kv: -kv[1][0]))

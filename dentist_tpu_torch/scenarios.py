@@ -1,6 +1,6 @@
 """Seeded simulated gap-closing scenarios, written to FASTA.
 
-Three scenarios drive the port end to end:
+Four scenarios drive the port end to end:
 
 - :func:`e2e_scenario` — the ``tests/test_e2e.py`` scenario: a 60 kb
   genome with 3 gaps of 80–300 bp and 20× reads of 10 kb ± 4 kb at 13 %
@@ -8,6 +8,10 @@ Three scenarios drive the port end to end:
 - :func:`phase_a_scenario` — the ``bench.py`` phase-A scenario: a 3 Mb
   genome with 16 gaps of 50–500 bp and 20× reads of 25 kb ± 12.5 kb at
   13 % error (seeds 123/124/125).
+- :func:`phase_c_scenario` — the ``bench.py`` phase-C scenario, the
+  reference example's scale: a 28 Mb genome with 112 copies of a 3 kb
+  interspersed repeat, 147 gaps of 100–1000 bp and phase A's read model
+  (seeds 321/322/323/324); smaller sizes keep its model.
 - :func:`scaffolds_repeats_scenario` — two scaffolds cut from one 2 Mb
   genome with interspersed repeats, 8 gaps of 100–1000 bp and phase A's
   read model, so the masks that mapping, collect and process read are
@@ -34,10 +38,11 @@ from .sim.partial import build_partial_assembly, random_gaps
 from .sim.reads import simulate_reads
 from .utils.regions import Region
 
-__all__ = ["Scenario", "e2e_scenario", "phase_a_scenario",
+__all__ = ["Scenario", "e2e_scenario", "phase_a_scenario", "phase_c_scenario",
            "scaffolds_repeats_scenario", "unrelated_reads", "write_scenario",
            "repeat_assembly", "write_truth", "staged_commands",
-           "closed_exactly", "closed_exactly_in", "closed_gap_pairs"]
+           "closed_exactly", "closed_exactly_in", "inexact_gaps",
+           "closed_gap_pairs"]
 
 
 @dataclass
@@ -70,6 +75,18 @@ def e2e_scenario() -> Scenario:
 def phase_a_scenario() -> Scenario:
     return _build([random_genome(3_000_000, seed=123)], 16, 50, 500, 20_000,
                   25_000, 12_500, (124, 125))
+
+
+def phase_c_scenario(mb: float = 28, n_gaps: int = 147) -> Scenario:
+    """``bench.py`` phase C at ``mb`` Mb: a random genome (seed 321) with
+    ``4 * mb`` copies (rounded down) of a 3 kb repeat at 2 % divergence
+    (seed 322), ``n_gaps`` gaps of 100–1000 bp at a 25 kb margin (seed
+    323) and 20x reads of 25 kb ± 12.5 kb at 13 % error (seed 324), built
+    in ``bench.py``'s order.  ``mb=3, n_gaps=16`` is the ``--small`` form
+    of ``scripts/profile_e2e.py``."""
+    g = random_genome(int(mb * 1_000_000), seed=321)
+    g = insert_repeats(g, n_copies=int(4 * mb), repeat_length=3000, seed=322)
+    return _build([g], n_gaps, 100, 1000, 25_000, 25_000, 12_500, (324, 323))
 
 
 def scaffolds_repeats_scenario() -> Scenario:
@@ -183,15 +200,22 @@ def staged_commands(directory: str, split: int = 8
     ]
 
 
+def inexact_gaps(sc: Scenario, out_seqs: list[np.ndarray],
+                 flank: int = 500) -> list[tuple[int, int, int]]:
+    """The gaps (record, begin, end) whose true sequence, ``flank`` bp
+    either side included, appears verbatim in none of the output
+    scaffolds."""
+    hay = [np.asarray(o, np.uint8).tobytes() for o in out_seqs]
+    return [(int(sid), int(b), int(e)) for sid, b, e in sc.gaps.iv
+            if not any(np.asarray(sc.truths[sid][b - flank : e + flank],
+                                  np.uint8).tobytes() in h for h in hay)]
+
+
 def closed_exactly(sc: Scenario, out_seqs: list[np.ndarray],
                    flank: int = 500) -> int:
     """Number of gaps whose true sequence, ``flank`` bp either side
     included, appears verbatim in one of the output scaffolds."""
-    n = 0
-    for sid, b, e in sc.gaps.iv:
-        window = sc.truths[sid][b - flank : e + flank]
-        n += any(_contains(o, window) for o in out_seqs)
-    return n
+    return len(sc.gaps.iv) - len(inexact_gaps(sc, out_seqs, flank))
 
 
 def closed_exactly_in(sc: Scenario, fasta_path: str, flank: int = 500) -> int:
@@ -206,14 +230,3 @@ def closed_gap_pairs(bed_rows) -> set:
     return {tuple(int(c) for c in f.split("=")[1].split("-"))
             for row in bed_rows for f in row.split("\t")[3].split(";")
             if f.startswith("contigIds=")}
-
-
-def _contains(haystack: np.ndarray, needle: np.ndarray) -> bool:
-    if len(needle) > len(haystack):
-        return False
-    win = np.lib.stride_tricks.sliding_window_view(haystack, len(needle))
-    step = 1 << 16
-    for s in range(0, len(win), step):
-        if (win[s : s + step] == needle).all(axis=1).any():
-            return True
-    return False

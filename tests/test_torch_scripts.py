@@ -1,10 +1,10 @@
 """The port's entry points besides ``python -m dentist_tpu_torch``: the
-``dentist-tpu-torch`` console script and the two port scripts
-(``scripts/stress_torch.py``, ``scripts/demo_2proc_torch.py``), which
-import nothing of JAX or the JAX package and refuse to run on a machine
-without a GPU unless the CPU is asked for (their imports all come
-before the device is chosen, so the refusal also runs every import with
-JAX blocked)."""
+``dentist-tpu-torch`` console script and the port scripts
+(``scripts/*_torch.py``: the stress and two-process runs, the profiles
+and the K2p bench), which import nothing of JAX or the JAX package and
+refuse to run on a machine without a GPU unless the CPU is asked for
+(their imports all come before the device is chosen, so the refusal
+also runs every import with JAX blocked)."""
 
 import importlib
 import os
@@ -15,7 +15,16 @@ import tomllib
 import pytest
 from test_torch_no_jax import _BLOCK_JAX, _BLOCKED, ROOT, _imported_packages
 
-_SCRIPTS = ("stress_torch", "demo_2proc_torch")
+#: each port script with the arguments its refusal is tried with
+_SCRIPTS = {
+    "stress_torch": ["--mb=1"],
+    "demo_2proc_torch": ["--mb=1"],
+    "profile_e2e_torch": ["--small"],
+    "profile_process_torch": [],
+    "profile_e2e_process_torch": ["--mb=1", "--gaps=5"],
+    "bench_consensus_kernel_torch": [],
+    "profile_staged_torch": [],
+}
 
 
 def test_console_script_is_the_port_cli():
@@ -58,7 +67,7 @@ def test_port_script_refuses_without_gpu(name, tmp_path):
     path = os.path.join(ROOT, "scripts", f"{name}.py")
     code = _BLOCK_JAX + f"""
 import runpy
-sys.argv = [{path!r}, "--mb=1"]
+sys.argv = [{path!r}, *{_SCRIPTS[name]!r}]
 try:
     runpy.run_path({path!r}, run_name="__main__")
 finally:
