@@ -52,7 +52,8 @@ Phases (any failure exits non-zero and prints no result line):
    also run after phase 5, at every bucket it launched them at (mode, T,
    N, sparse or dense, resident or host windows), on the first such
    launch's own inputs, cloned there (a resident launch's template
-   windows cut into a store of their own); with ``--baseline``, the
+   windows cut into a store of their own; phase 5's launches are
+   recorded by ``dryrun.LaunchRecorder``); with ``--baseline``, the
    other K4 or K4w checked equal word for word and timed beside this
    one's there.  K5 also runs after phase 5, at every upload size it
    made (and the largest again at an unaligned offset), with its bytes,
@@ -135,11 +136,31 @@ Phases (any failure exits non-zero and prints no result line):
 15. Scripts: ``scripts/profile_e2e_torch.py --small`` (phase C's model at
    3 Mb, one call), ``scripts/profile_process_torch.py`` and
    ``scripts/bench_consensus_kernel_torch.py`` as processes on the card;
-   each must exit 0 and print its JSON line, the first must close and
-   close byte-exact (``check_results``) at least as many gaps as the JAX
-   package's run of the same scenario and, like the second, launch every
-   kernel of the main path, and the bench must take every shape, equal
-   to its plain version where it holds it.
+   each must exit 0 and print its JSON line, the first two must launch
+   every kernel of the main path (phase 16 holds the first one's
+   scenario to the JAX package's run by digest), and the bench must
+   take every shape, equal to its plain version where it holds it.
+16. Phase C by digest: ``scenarios.phase_c_scenario`` at 3 Mb / 16 gaps
+   and at 28 Mb / 147 gaps (the reference example's scale) through
+   ``run_pipeline`` with a workdir, each from a fresh device store, in a
+   process of its own (``scripts/phase_c_torch.py``; the 3 Mb call is its
+   first), against the JAX package's CPU run of the same files
+   (``scripts/phase_c_reference.json``, written by
+   ``scripts/phase_c_reference.py``): the inputs must hash as the
+   reference's before the pipeline runs (a drift of the data generator
+   fails as such), then the FASTA, AGP and BED, every stage artifact
+   (masks, alignments, pile-ups, insertions by their arrays' sha256;
+   the validation skip list) and every closed gap (its BED row and
+   inserted sequence) must equal the reference's, the gaps closed and
+   closed byte-exact must be at least its counts, and every kernel of
+   the main path must have launched.  Logs the wall and stage seconds,
+   K1p launches and store resets, peak device memory and RSS, launches
+   per kernel and per bucket, and what differs, if anything.  Then phase
+   3 once more: every kernel of the main path against its plain version
+   (tolerance 0) at each bucket and K5 upload size the two runs launched
+   and phase 5 did not (the script's ``LaunchRecorder`` tables, with the
+   first K4 and K4w inputs of each bucket; K1 without K1p, K2p without
+   K2).
 
 The last lines of standard output are the card's ``nvidia-smi`` line,
 the kernels' JSON record and ``{"ok": true, "device": {...}}``.  The
@@ -163,7 +184,6 @@ import os
 import subprocess
 import sys
 import tempfile
-import threading
 import time
 
 import numpy as np
@@ -248,18 +268,22 @@ SCAFFOLDS_SHA256 = {
     "out.closed-gaps.bed": "43cee961c1845b46d08070395f5bba77bbd7271c50d05a68a74d5efc6b2432cd",
 }
 
-# Phase-15 constants: the JAX package's run of
+# Phase 16: the JAX package's runs of phase C at 3 Mb / 16 gaps
+# and 28 Mb / 147 gaps, by
 #   JAX_PLATFORMS=cpu DENTIST_TPU_FORCE_SINGLE=1 \
-#       python scripts/phase_c_small_reference.py DIR
-# (x86-64 CPU, JAX on its CPU backend, 599 s): ``python -m dentist_tpu.cli
-# pipeline`` with read coverage 20 on the files ``write_scenario(
-# phase_c_scenario(mb=3, n_gaps=16), DIR)`` writes (assembly.fasta sha256
-# 6a0139e9..., reads.fasta ec54085a...), then ``check-results`` against
-# ``write_truth``'s truth: 16 gaps closed, 16 correct (out.fasta sha256
-# 68fcc273...).
-PHASE_C_SMALL_JAX_CLOSED = 16
-PHASE_C_SMALL_JAX_CORRECT = 16
-#: the kernels of the main path, which phase 15's pipeline runs must launch
+#       python scripts/phase_c_reference.py DIR --mb MB --gaps GAPS
+# (x86-64 CPU, JAX on its CPU backend): ``python -m dentist_tpu.cli
+# pipeline`` with read coverage 20 and a workdir on the files
+# ``write_scenario(phase_c_scenario(MB, GAPS), DIR)`` writes, then
+# ``check-results`` against ``write_truth``'s truth; each size's digests
+# (``scenarios.phase_c_digests``), counts, times and provenance under its
+# key (``"3"``, ``"28"``) of this file.
+PHASE_C_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                 "scripts", "phase_c_reference.json")
+#: phase 16's sizes (Mb, gaps), each against its entry of the file above
+PHASE_C_SIZES = ((3, 16), (28, 147))
+#: the kernels of the main path, which the pipeline runs of phases 5, 15
+#: and 16 must launch
 MAIN_PATH_KERNELS = ("K1", "K2p", "K2r", "K3p", "K4", "K4w", "K5")
 
 #: phase-6 runs: the later calls of a process, without its first-call costs
@@ -781,34 +805,13 @@ def k3f_work(args, T: int, global_ends: bool) -> dict:
             "word_rows": int((rows * words).sum()), "bytes": moved}
 
 
-def k3_counts(meta, TW: int, RW: int) -> dict:
-    """What K3's inputs need: live candidates (a base window), filled
-    read slots (rl > 0), and over both halves and the filled slots, the
-    DP cells min(tl, TW) x (rl + 1) and the word rows min(tl, TW) x
-    ceil(rl / 32), on 32-bit words (a half runs no row where tl <= 0 or
-    tl > TW, a slot none where rl <= 0 or rl > RW); and the counts of
-    the live candidates' base lengths (0 .. TW + 1, longer ones at
-    TW + 1) and of the filled slots' lengths (0 .. RW + 1)."""
-    import torch
-
-    tl = meta[:, :2].long()
-    rl = meta[:, 2:].long()
-    rows = torch.where((tl >= 1) & (tl <= TW), tl, 0).sum(1, keepdim=True)
-    r = torch.where((rl >= 1) & (rl <= RW), rl, 0)
-    base = tl[:, 0][tl[:, 0] > 0].clamp(max=TW + 1)
-    return {"live": int((tl[:, 0] > 0).sum()), "filled": int((rl > 0).sum()),
-            "cells": int((rows * (r + 1) * (r > 0)).sum()),
-            "word_rows": int((rows * ((r + 31) // 32)).sum()),
-            "tl_hist": torch.bincount(base, minlength=TW + 2).cpu().numpy(),
-            "rl_hist": torch.bincount(rl[rl > 0].clamp(max=RW + 1),
-                                      minlength=RW + 2).cpu().numpy()}
-
-
 def k3_work(rows, meta, TW: int, RW: int) -> dict:
     """K3's and K3p's bound: the rows (packed or not) and meta in, the
     (2, V, NB) distances out; ``K3_OPS_PER_WORD32`` operations per word
-    row of :func:`k3_counts`, whose cell count rides along for the cell
+    row of ``dryrun.k3_counts``, whose cell count rides along for the cell
     rate."""
+    from dentist_tpu_torch.dryrun import k3_counts
+
     counts = k3_counts(meta, TW, RW)
     out_b = 2 * meta.shape[0] * (meta.shape[1] - 2) * 4
     return {**bound(nbytes(rows, meta) + out_b,
@@ -851,7 +854,7 @@ def k3_case(rng, V: int, NB: int, TW: int, TWp: int, RW: int, live: int,
             per: int, tl_hist, rl_hist):
     """K3 rows at one of the main path's launch shapes: ``live``
     candidates, each a base window of a length drawn from ``tl_hist``
-    (:func:`k3_counts`) and an edited window one deletion, insertion or
+    (``dryrun.k3_counts``) and an edited window one deletion, insertion or
     substitution away, and ``per`` read slots each, holding noisy copies
     of the window (``sim.reads._mutate``: 13 % error, the simulator's
     mix, continued periodically past the window's end) cut to lengths
@@ -1194,12 +1197,13 @@ def build_baselines(path) -> dict:
     return fns
 
 
-def phase_k1(buckets: dict, baseline) -> list:
+def phase_k1(buckets: dict, baseline, legacy=K1_LEGACY, packed: bool = True) -> list:
     """Phase 3 for K1 and K1p, after phase 5: each against its plain
     version at every (R, N) bucket pair the main path launched (and at
-    ``K1_LEGACY``), with its time, bound and their ratio; with
+    ``legacy``, with and without diagonal bounds), with its time, bound
+    and their ratio; K1 alone where ``packed`` is false; with
     ``baseline`` (:func:`build_baselines`' ``extend.cu``), the other version's kernel
-    timed beside this one at ``K1_LEGACY`` on the same inputs, in turns
+    timed beside this one at ``legacy`` on the same inputs, in turns
     (baseline, kernel, kernel, baseline)."""
     import torch
 
@@ -1208,11 +1212,11 @@ def phase_k1(buckets: dict, baseline) -> list:
     rng = np.random.default_rng(2024)
     store = banded.device_store()
     stream = lambda: torch.cuda.current_stream().cuda_stream
-    shapes = sorted(set(buckets) | set(K1_LEGACY), key=lambda rn: rn[0] * rn[1])
+    shapes = sorted(set(buckets) | set(legacy), key=lambda rn: rn[0] * rn[1])
     k1, k1p = {}, {}
     for R, N in shapes:
         BW = banded.bw_for(R, 256)
-        for bounded in ((False, True) if (R, N) in K1_LEGACY else (False,)):
+        for bounded in ((False, True) if (R, N) in legacy else (False,)):
             meta, num_k = k1_case(store, rng, R, N, bounded)
             nd = torch.from_numpy(num_k).cuda()
             kernel = lambda: banded.extend(store.array, meta, num_k, R=R, W=256)
@@ -1223,12 +1227,14 @@ def phase_k1(buckets: dict, baseline) -> list:
             log(f"  {int((st['out'][3] > 0).sum())}/{N} lanes aligned; "
                 f"{st['ms'] / st['bound_ms']:.2f}x the bound")
             k1 = merge(k1, st)
-            if baseline and not bounded and (R, N) in K1_LEGACY:
+            if baseline and not bounded and (R, N) in legacy:
                 out = torch.empty_like(st["out"])
                 old = lambda: baseline["dentist_extend"](
                     store.array.data_ptr(), meta.data_ptr(), nd.data_ptr(),
                     out.data_ptr(), store.array.numel(), N, R, 256, BW, stream())
                 compare("K1", R, N, kernel, old, out, st)
+            if not packed:
+                continue
             chars, meta5, num_k = k1p_case(rng, R, N, bounded)
             nd = torch.from_numpy(num_k).cuda()
             kernel = lambda: banded.extend_packed(chars, meta5, num_k, R=R, W=256)
@@ -1240,7 +1246,7 @@ def phase_k1(buckets: dict, baseline) -> list:
             log(f"  {int((st['out'][3] > 0).sum())}/{N} lanes aligned; "
                 f"{st['ms'] / st['bound_ms']:.2f}x the bound")
             k1p = merge(k1p, st)
-            if baseline and not bounded and (R, N) in K1_LEGACY:
+            if baseline and not bounded and (R, N) in legacy:
                 out = torch.empty_like(st["out"])
                 old = lambda: baseline["dentist_extend_packed"](
                     chars.data_ptr(), meta5.data_ptr(), nd.data_ptr(),
@@ -1314,13 +1320,14 @@ def turns(what: str, kernel, old, reps: int = 3, timer=cuda_ms) -> list:
     return ms
 
 
-def phase_k2(k2_buckets: dict, baseline) -> list:
+def phase_k2(k2_buckets: dict, baseline, full: bool = True) -> list:
     """Phase 3 for K2, K2p and K2r, after phase 5: each against its plain
     version at every (T, RL, N) bucket of the main path's launches, with
     as many live lanes as the launches held on average, with its time,
     bound and their ratio.  K2p at the largest of them runs again with
     S = 0 (the forward scan alone) beside the full S (scan and
-    traceback).  With ``baseline`` (:func:`build_baselines`'
+    traceback).  Where ``full`` is false, K2p and K2r alone, the modes
+    the main path launches: no K2 beside K2p and no S = 0.  With ``baseline`` (:func:`build_baselines`'
     ``nw_round.cu``), the other
     version's K2p there and its K2r at the largest K2r bucket are checked
     equal and timed beside these, in turns."""
@@ -1344,19 +1351,20 @@ def phase_k2(k2_buckets: dict, baseline) -> list:
                       lead_free=16 if window else -1)
             args = k2_case(rng, T, RL, N, live, window)
             chars, meta = k2p_pack(args, window)
-            st = hold(f"K2 nw_round T={T} RL={RL} N={N} live={live}",
-                      lambda: nw_round.nw_round(*args, **kw),
-                      lambda: nw_round.nw_round_reference(*args, **kw), 3,
-                      k2_work(args[1], T, 128, NWIN, nbytes(*args)))
-            log(f"  {int(st['out'][6].sum())}/{N} lanes covered; {ratio(st)}")
-            k2, unpacked = merge(k2, st), st["out"]
+            if full:
+                st = hold(f"K2 nw_round T={T} RL={RL} N={N} live={live}",
+                          lambda: nw_round.nw_round(*args, **kw),
+                          lambda: nw_round.nw_round_reference(*args, **kw), 3,
+                          k2_work(args[1], T, 128, NWIN, nbytes(*args)))
+                log(f"  {int(st['out'][6].sum())}/{N} lanes covered; {ratio(st)}")
+                k2, unpacked = merge(k2, st), st["out"]
             st = hold(f"K2p nw_round_packed T={T} RL={RL} N={N} live={live}",
                       lambda: nw_round.nw_round_packed(chars, meta, RL=RL, **kw),
                       lambda: nw_round.nw_round_packed_reference(
                           chars, meta, RL=RL, **kw), 3,
                       k2_work(args[1], T, 128, NWIN, nbytes(chars, meta)))
             log(f"  {ratio(st)}")
-            if max_abs_err(st["out"], unpacked):
+            if full and max_abs_err(st["out"], unpacked):
                 fail(f"K2p != K2 on the same lanes at T={T} N={N}")
             k2p = merge(k2p, st)
             if largest is None or T * live > largest[0] * largest[3]:
@@ -1382,6 +1390,13 @@ def phase_k2(k2_buckets: dict, baseline) -> list:
             k2r = merge(k2r, st)
             last_r = (T, RL, N, meta, kw, st)
 
+    src = "dentist_tpu_torch/csrc/nw_round.cu"
+    rows = [("K2p nw_round_packed", src, "dentist_tpu/ops/consensus.py:491",
+             "main", "K2p", k2p),
+            ("K2r nw_round_resident", src, "dentist_tpu/ops/consensus.py:945",
+             "main", "K2r", k2r)]
+    if not full:
+        return rows
     # the forward scan (S = 0) against scan and traceback, at the largest
     # K2p bucket (by live rows), in this version and the baseline's
     T, RL, N, live, chars, meta, kw, st = largest
@@ -1413,11 +1428,7 @@ def phase_k2(k2_buckets: dict, baseline) -> list:
         log(f"  K2p T={T} N={N} live={live}: S={T + RL} {ms[0]:.3f} ms, S=0 "
             f"{ms[1]:.3f} ms (traceback {ms[0] - ms[1]:.3f} ms); no "
             f"nw_round.cu in --baseline: no other K2 version timed")
-    src = "dentist_tpu_torch/csrc/nw_round.cu"
-    return [("K2p nw_round_packed", src, "dentist_tpu/ops/consensus.py:491",
-             "main", "K2p", k2p),
-            ("K2r nw_round_resident", src, "dentist_tpu/ops/consensus.py:945",
-             "main", "K2r", k2r)]
+    return rows
 
 
 def phase_k3(k3_buckets: dict, baseline) -> list:
@@ -1434,6 +1445,7 @@ def phase_k3(k3_buckets: dict, baseline) -> list:
     (:func:`cuda_ms_queued`)."""
     import torch
 
+    from dentist_tpu_torch.dryrun import k3_counts
     from dentist_tpu_torch.ops import nw_dist
 
     rng = np.random.default_rng(2026)
@@ -1516,7 +1528,8 @@ def phase_k4(k4_buckets: dict, baseline, fixed: dict) -> list:
     ``round_pack.cu``), the other version's kernel is checked equal word
     for word and timed beside this one in turns, by device time.  Each
     mode's row takes its largest bucket; a mode that phase 5 did not
-    launch keeps phase 3's fixed cases (``fixed``)."""
+    launch keeps phase 3's fixed cases (``fixed``; none for phase 16's
+    buckets)."""
     import torch
 
     from dentist_tpu_torch.ops import round_pack as RP
@@ -1577,10 +1590,10 @@ def phase_k4(k4_buckets: dict, baseline, fixed: dict) -> list:
     if not baseline:
         log("  no round_pack.cu in --baseline: no other K4 version timed")
     for _, _, _, row in K4_ROWS:
-        if row not in best:
+        if row not in best and fixed:
             log(f"  {row}: not launched in phase 5; its row keeps phase 3's cases")
     return [(name, "dentist_tpu_torch/csrc/round_pack.cu", rep, run, row,
-             best[row][1] if row in best else fixed[row])
+             best[row][1] if row in best else fixed.get(row))
             for name, rep, run, row in K4_ROWS]
 
 
@@ -1682,10 +1695,34 @@ def run_phase_a(d: str, asm: str, reads: str, tag: str):
     return result, out, time.perf_counter() - t0
 
 
+def log_buckets(t: dict) -> None:
+    """The launches of a :class:`~dentist_tpu_torch.dryrun.LaunchRecorder`
+    (its ``tables()``, or ``vars()`` of it) by bucket, with their live
+    lanes."""
+    log("  K1 launches by (R, N): " + "; ".join(
+        f"({R}, {N}) x{c}, {live} live lanes, {rows} rows"
+        for (R, N), (c, live, rows) in sorted(t["k1"].items())))
+    log("  K2p and K2r launches by (T, RL, N): " + "; ".join(
+        f"{mode} ({T}, {RL}, {N}) x{c}, {live} live lanes"
+        for (mode, T, RL, N), (c, live) in sorted(t["k2"].items())))
+    log("  K3p launches by (V, NB, TW, TWp, RW): " + "; ".join(
+        f"{key} x{r['launches']}, {r['live']} live candidates, {r['filled']} "
+        f"filled slots, {r['cells']} cells, {r['word_rows']} word rows "
+        f"(32-bit), mean lengths {(np.arange(len(r['tl_hist'])) * r['tl_hist']).sum() / max(1, r['live']):.2f} "
+        f"(base windows), {(np.arange(len(r['rl_hist'])) * r['rl_hist']).sum() / max(1, r['filled']):.2f} (reads)"
+        for key, r in sorted(t["k3"].items())))
+    log("  K4 and K4w launches by (T, N): " + "; ".join(
+        f"{k4_what(key)} x{r['launches']}, {r['live']} live lanes"
+        for key, r in sorted(t["k4"].items())))
+    log(f"  K5 uploads (characters): {[n for n, _ in t['k5']]}, "
+        f"{sum(n for n, _ in t['k5'])} in all; offsets a multiple of 16: "
+        f"{sum(o % 16 == 0 for _, o in t['k5'])}/{len(t['k5'])}")
+
+
 def phase_a(tmp: str) -> dict:
     import torch
 
-    from dentist_tpu_torch.ops import banded, consensus
+    from dentist_tpu_torch.dryrun import LaunchRecorder
     from dentist_tpu_torch.pipeline import STAGE_SECONDS, reset_stage_seconds
     from dentist_tpu_torch.scenarios import (closed_exactly_in,
                                              phase_a_scenario, write_scenario)
@@ -1695,106 +1732,17 @@ def phase_a(tmp: str) -> dict:
     asm, reads = write_scenario(sc, d)
     reset_stage_seconds()
     torch.cuda.reset_peak_memory_stats()
-    shapes = []  # (R, N, a_len row) of each K1 launch
-    extend = banded.extend
-
-    def recorded(store, meta12, num_k, R, W=256):
-        shapes.append((R, meta12.shape[1], meta12[2].clone()))
-        return extend(store, meta12, num_k, R, W)
-
-    # each K2p and K2r launch's (T, RL, N, live lanes: a template and a
-    # read), through wrappers around the names consensus calls them by;
-    # a thread's last live count goes to the K4 or K4w launch that packs
-    # the round's fields (the same thread, next)
-    k2_shapes = []
-    tls = threading.local()
-
-    def k2_recorder(mode, fn):
-        def recorded_k2(src, meta, **kw):
-            live = int(((meta[0] > 0) & (meta[1] > 0)).sum())
-            k2_shapes.append((mode, kw["T"], kw["RL"], meta.shape[1], live))
-            tls.live = live
-            return fn(src, meta, **kw)
-        return recorded_k2
-
-    # each K4 and K4w launch's bucket (mode, T, N, sparse, resident) and
-    # live lanes, and the first launch of each bucket's inputs, cloned
-    # (a resident launch's template windows are cut from the store into
-    # a store of their own, their offsets moved with them)
-    k4_shapes, k4_inputs = [], {}
-    k4_lock = threading.Lock()
-    k4_fns = (consensus.round_pack, consensus.window_pack)
-
-    def k4_record(key, inputs):
-        with k4_lock:
-            k4_shapes.append((key, getattr(tls, "live", 0)))
-            if key not in k4_inputs:
-                k4_inputs[key] = inputs()
-
-    def recorded_k4(chars, fields, centers, T, RL, NWIN, sparse):
-        k4_record(("K4", T, fields[0].shape[0], bool(sparse), False),
-                  lambda: (chars.clone(), tuple(f.clone() for f in fields),
-                           centers.clone(), RL, NWIN))
-        return k4_fns[0](chars, fields, centers, T, RL, NWIN, sparse=sparse)
-
-    def recorded_k4w(tsrc, meta, fields, centers, sparse, resident):
-        def inputs():
-            if not resident:
-                return tsrc.clone(), meta.clone(), tuple(f.clone() for f in fields), centers.clone()
-            N, T = meta.shape[1], fields[0].shape[1]
-            start = meta[3].long().clamp(0, tsrc.numel() - T)
-            store = tsrc[start[:, None] + torch.arange(T, device=tsrc.device)]
-            moved = meta.clone()
-            moved[3] = torch.arange(N, dtype=torch.int32, device=meta.device) * T
-            return (store.reshape(-1).contiguous(), moved,
-                    tuple(f.clone() for f in fields), centers.clone())
-        k4_record(("K4w", fields[0].shape[1], fields[0].shape[0], bool(sparse),
-                   bool(resident)), inputs)
-        return k4_fns[1](tsrc, meta, fields, centers, sparse, resident=resident)
-
-    # each K5 upload's characters and store offset, through a wrapper
-    # around the name ``DeviceStore.offset_of`` calls
-    k5_uploads = []
-    store_write = banded.store_write
-
-    def recorded_k5(packed, store, off):
-        k5_uploads.append((4 * packed.numel(), off))
-        return store_write(packed, store, off)
-
-    k2_fns = (consensus.nw_round_packed, consensus.nw_round_resident)
-    # each K3p launch's (V, NB, TW, TWp, RW) and what its inputs need
-    # (k3_counts), through a wrapper around the name consensus calls
-    k3_shapes = []
-    k3_fn = consensus.nw_dist_pairs_packed
-
-    def recorded_k3(chars, meta, TW, TWp, RW, NB):
-        k3_shapes.append(((meta.shape[0], NB, TW, TWp, RW),
-                          k3_counts(meta, TW, RW)))
-        return k3_fn(chars, meta, TW=TW, TWp=TWp, RW=RW, NB=NB)
-
-    banded.extend = recorded
-    banded.store_write = recorded_k5
-    consensus.nw_round_packed = k2_recorder("K2p", k2_fns[0])
-    consensus.nw_round_resident = k2_recorder("K2r", k2_fns[1])
-    consensus.nw_dist_pairs_packed = recorded_k3
-    consensus.round_pack, consensus.window_pack = recorded_k4, recorded_k4w
     reset_launch_counts()
-    try:
+    with LaunchRecorder() as rec:
         result, out, wall = run_phase_a(d, asm, reads, "")
-    finally:
-        banded.extend = extend
-        banded.store_write = store_write
-        consensus.nw_round_packed, consensus.nw_round_resident = k2_fns
-        consensus.nw_dist_pairs_packed = k3_fn
-        consensus.round_pack, consensus.window_pack = k4_fns
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     n_pileups = None
     with open(os.path.join(d, "work", "pipeline.log")) as fh:
         for line in fh:
-            rec = json.loads(line)
-            if rec.get("event") == "collectPileUps":
-                n_pileups = rec["numPileUps"]
+            row = json.loads(line)
+            if row.get("event") == "collectPileUps":
+                n_pileups = row["numPileUps"]
     exact = closed_exactly_in(sc, out)
     stages = {k.rsplit(".", 1)[-1]: round(v, 3) for k, v in STAGE_SECONDS.items()}
     log(f"main path 3 Mb / 16 gaps: {wall:.1f} s wall; stages {json.dumps(stages)}")
@@ -1802,63 +1750,22 @@ def phase_a(tmp: str) -> dict:
         f"({exact} byte-exact; JAX: {PHASE_A_JAX_CLOSED} closed, "
         f"{PHASE_A_JAX_EXACT} byte-exact); peak device memory "
         f"{peak / 2**30:.2f} GiB; kernel launches {json.dumps(launches)}")
-    buckets: dict = {}
-    for R, N, a_len in shapes:
-        row = buckets.setdefault((R, N), [0, 0, 0])
-        row[0] += 1
-        row[1] += int((a_len > 0).sum())
-        row[2] += int(a_len.clamp(0, R).sum())
-    log("  K1 launches by (R, N): " + "; ".join(
-        f"({R}, {N}) x{c}, {live} live lanes, {rows} rows"
-        for (R, N), (c, live, rows) in sorted(buckets.items())))
-    k2_buckets: dict = {}
-    for mode, T, RL, N, live in k2_shapes:
-        row = k2_buckets.setdefault((mode, T, RL, N), [0, 0])
-        row[0] += 1
-        row[1] += live
-    log("  K2p and K2r launches by (T, RL, N): " + "; ".join(
-        f"{mode} ({T}, {RL}, {N}) x{c}, {live} live lanes"
-        for (mode, T, RL, N), (c, live) in sorted(k2_buckets.items())))
-    k3_buckets: dict = {}
-    for key, counts in k3_shapes:
-        rec = k3_buckets.setdefault(key, {"launches": 0})
-        rec["launches"] += 1
-        for name, x in counts.items():
-            rec[name] = rec.get(name, 0) + x
-    log("  K3p launches by (V, NB, TW, TWp, RW): " + "; ".join(
-        f"{key} x{r['launches']}, {r['live']} live candidates, {r['filled']} "
-        f"filled slots, {r['cells']} cells, {r['word_rows']} word rows "
-        f"(32-bit), mean lengths {(np.arange(len(r['tl_hist'])) * r['tl_hist']).sum() / max(1, r['live']):.2f} "
-        f"(base windows), {(np.arange(len(r['rl_hist'])) * r['rl_hist']).sum() / max(1, r['filled']):.2f} (reads)"
-        for key, r in sorted(k3_buckets.items())))
-    k4_buckets: dict = {}
-    for key, live in k4_shapes:
-        rec = k4_buckets.setdefault(key, {"launches": 0, "live": 0,
-                                          "inputs": k4_inputs[key]})
-        rec["launches"] += 1
-        rec["live"] += live
-    log("  K4 and K4w launches by (T, N): " + "; ".join(
-        f"{k4_what(key)} x{r['launches']}, {r['live']} live lanes"
-        for key, r in sorted(k4_buckets.items())))
-    log(f"  K5 uploads (characters): {[n for n, _ in k5_uploads]}, "
-        f"{sum(n for n, _ in k5_uploads)} in all; offsets a multiple of 16: "
-        f"{sum(o % 16 == 0 for _, o in k5_uploads)}/{len(k5_uploads)}")
-    if len(k5_uploads) != launches["K5"]:
-        fail(f"{launches['K5']} K5 launches for {len(k5_uploads)} uploads")
+    log_buckets(vars(rec))
+    if len(rec.k5) != launches["K5"]:
+        fail(f"{launches['K5']} K5 launches for {len(rec.k5)} uploads")
     check_hashes(d, "out", PHASE_A_SHA256, "3 Mb scenario")
     log("  FASTA, AGP and BED equal to the JAX package's (sha256)")
     # the default path: resident K1, packed full rounds (K2p) and polish
     # (K3p), store-resident windows (K2r), sparse blocks (K4, K4w), 2-bit
     # store uploads (K5)
-    for mode in ("K1", "K2p", "K2r", "K3p", "K4", "K4w", "K5"):
+    for mode in MAIN_PATH_KERNELS:
         if launches[mode] <= 0:
             fail(f"{mode} was not launched on the main path")
     if result.n_closed_gaps < PHASE_A_JAX_CLOSED:
         fail(f"closed {result.n_closed_gaps} gaps, JAX closes {PHASE_A_JAX_CLOSED}")
     if exact < PHASE_A_JAX_EXACT:
         fail(f"{exact} gaps closed byte-exact, JAX closes {PHASE_A_JAX_EXACT}")
-    return (launches, sc, buckets, k2_buckets, k3_buckets, k4_buckets,
-            k5_uploads, wall)
+    return launches, sc, rec, wall
 
 
 def consensus_sections(sections: dict) -> dict:
@@ -2093,18 +2000,6 @@ def extended_on_card(d: str, launches: dict, stage: str, out: str,
     return n
 
 
-def npz_sha256(path: str) -> str:
-    """sha256 of an npz container's arrays (each one's name, dtype, shape
-    and bytes, by name), not of its zip headers, which carry times."""
-    h = hashlib.sha256()
-    with np.load(path, allow_pickle=False) as z:
-        for key in sorted(z.files):
-            a = np.ascontiguousarray(z[key])
-            h.update(f"{key} {a.dtype.str} {a.shape}\n".encode())
-            h.update(a.tobytes())
-    return h.hexdigest()
-
-
 def phase_staged(tmp: str, sc) -> None:
     """The staged workflow on the 3 Mb scenario through ``cli.main``; each
     stage timed with its launches."""
@@ -2152,7 +2047,8 @@ def phase_repeats(tmp: str) -> None:
     repeats, where ``tandem`` and ``align`` have alignments to extend."""
     from dentist_tpu_torch.io.fasta import codes_to_seq, write_fasta
     from dentist_tpu_torch.io.store import load_mask
-    from dentist_tpu_torch.scenarios import repeat_assembly, staged_commands
+    from dentist_tpu_torch.scenarios import (npz_sha256, repeat_assembly,
+                                             staged_commands)
 
     d = os.path.join(tmp, "repeats")
     os.makedirs(d)
@@ -2315,7 +2211,7 @@ def phase_two_processes(tmp: str, staged_walls: dict) -> None:
     ``python -m dentist_tpu_torch`` processes on this card at once, then
     ``merge-insertions``: the merged insertions must equal phase 10's."""
     from dentist_tpu_torch import cli
-    from dentist_tpu_torch.scenarios import staged_commands
+    from dentist_tpu_torch.scenarios import npz_sha256, staged_commands
 
     d = os.path.join(tmp, "staged")
     stages = dict(staged_commands(d))
@@ -2372,19 +2268,24 @@ def run_script(name: str, *args: str) -> dict:
     return out
 
 
+def phase_c_reference() -> dict:
+    """``PHASE_C_REFERENCE``'s entries, by size."""
+    try:
+        with open(PHASE_C_REFERENCE) as fh:
+            return json.load(fh)
+    except (OSError, json.JSONDecodeError) as exc:
+        fail(f"phase C: cannot read the JAX package's digests: {exc}")
+
+
 def phase_scripts() -> None:
-    """The ported profiling and bench scripts as processes on the card."""
+    """The ported profiling and bench scripts as processes on the card
+    (phase 16 holds phase C's 3 Mb run, which ``--small`` profiles, to
+    the JAX package's by digest)."""
     e2e = run_script("profile_e2e_torch", "--small", "--calls", "1")
     call = e2e["calls"][0]
     log(f"  phase C at 3 Mb / {e2e['scenario']['n_gaps']} gaps: {call['wall_s']:.2f} s, "
-        f"{e2e['numClosedGaps']} closed, {e2e['numCorrectGaps']} correct (JAX: "
-        f"{PHASE_C_SMALL_JAX_CLOSED}, {PHASE_C_SMALL_JAX_CORRECT}); busy "
+        f"{e2e['numClosedGaps']} closed, {e2e['numCorrectGaps']} correct; busy "
         f"{call['busy']['ms']:.1f} ms; launches {json.dumps(call['launches'])}")
-    if (e2e["numClosedGaps"] < PHASE_C_SMALL_JAX_CLOSED
-            or e2e["numCorrectGaps"] < PHASE_C_SMALL_JAX_CORRECT):
-        fail(f"scripts: profile_e2e_torch --small closed {e2e['numClosedGaps']} "
-             f"({e2e['numCorrectGaps']} correct); JAX {PHASE_C_SMALL_JAX_CLOSED} "
-             f"({PHASE_C_SMALL_JAX_CORRECT})")
     proc = run_script("profile_process_torch")
     log(f"  process on phase A: {json.dumps([round(w, 2) for w in proc['process_seconds']])} s, "
         f"sampled {proc['sampled_process_seconds']:.2f} s; launches "
@@ -2402,6 +2303,91 @@ def phase_scripts() -> None:
                + (f", max_abs_err {row['max_abs_err']}" if "max_abs_err" in row else "")))
         if "refused" in row or row.get("max_abs_err", 0):
             fail(f"scripts: the K2p bench failed at T={row['T']} N={row['N']}")
+
+
+def phase_c(ref: dict, tmp: str, phase5) -> None:
+    """Phase C at each of ``PHASE_C_SIZES`` through ``run_pipeline`` on
+    the card, in a process of its own (``scripts/phase_c_torch.py``),
+    held to the JAX package's run of the same files: outputs, stage
+    artifacts and every closed gap by digest, counts, and the main path's
+    kernels launched; then each kernel at the buckets the runs launched
+    that phase 5 (``phase5``, its recorder) did not
+    (:func:`phase_c_holds`)."""
+    import torch
+
+    out = run_script("phase_c_torch", "--dir", tmp)
+    runs = {run["key"]: run for run in out["runs"]}
+    tables = []
+    log(f"  {out['nvidia_smi']}; kernels loaded in {out['build_seconds']:.1f} s")
+    for mb, gaps in PHASE_C_SIZES:
+        what = f"phase C {mb} Mb / {gaps} gaps"
+        want, run = ref[str(mb)], runs.get(str(mb))
+        if run is None:
+            fail(f"{what}: phase_c_torch ran no such size: {sorted(runs)}")
+        got = run["digests"]
+        log(f"{what}: {run['wall_s']:.2f} s wall (datagen {run['datagen_s']:.1f} s, "
+            f"digests {run['digest_s']:.1f} s); stages {json.dumps(run['stage_s'])}")
+        log(f"  closed {got['closed']}, {got['closed_exactly']} byte-exact, "
+            f"inexact {got['inexact']} (JAX: {want['closed']}, "
+            f"{want['closed_exactly']}, {want['inexact']}); K1p "
+            f"{run['launches'].get('K1p', 0)}, store resets {run['store_resets']}; "
+            f"peak device memory {run['peak_device_gib']:.3f} GiB, peak RSS "
+            f"{run['peak_rss_gib']:.2f} GiB")
+        log(f"  launches {json.dumps(run['launches'])}")
+        tables.append(torch.load(os.path.join(tmp, f"phase_c_{mb}", "launches.pt"),
+                                 map_location="cuda", weights_only=False))
+        log_buckets(tables[-1])
+        log(f"  differing from JAX: {run['differs'] or 'none'}")
+        check_hashes(os.path.join(tmp, f"phase_c_{mb}"), "out", want["sha256"], what)
+        if run["differs"]:
+            fail(f"{what}: differs from the JAX package's run in {run['differs']}")
+        log("  FASTA, AGP, BED, every stage artifact and every closed gap "
+            "equal to the JAX package's (sha256)")
+        if (got["closed"] < want["closed"]
+                or got["closed_exactly"] < want["closed_exactly"]):
+            fail(f"{what}: {got['closed']} closed, {got['closed_exactly']} "
+                 f"byte-exact; JAX {want['closed']} and {want['closed_exactly']}")
+        missing = [m for m in MAIN_PATH_KERNELS if not run["launches"].get(m)]
+        if missing:
+            fail(f"{what}: {missing} not launched: {run['launches']}")
+    phase_c_holds(tables, phase5)
+
+
+def phase_c_holds(tables: list, phase5) -> None:
+    """Phase 3 for phase 16: at every bucket and K5 upload size that
+    phase C's runs (their recorders' ``tables()``) launched and phase 5
+    (its recorder) did not, each kernel against its plain version
+    (tolerance 0) as phase 3 holds phase 5's, on the first launch's own
+    inputs for K4 and K4w; K1 without K1p and K2p without K2, the modes
+    phase C launches."""
+    new = {"k1": {}, "k2": {}, "k3": {}, "k4": {}, "k5": []}
+    sizes = {n for n, _ in phase5.k5}
+    for t in tables:
+        for name in ("k1", "k2"):
+            for key, row in t[name].items():
+                if key not in getattr(phase5, name):
+                    have = new[name].get(key, [0] * len(row))
+                    new[name][key] = [a + b for a, b in zip(have, row)]
+        for key, r in t["k3"].items():
+            if key not in phase5.k3:
+                have = new["k3"].setdefault(key, {})
+                for name, x in r.items():
+                    have[name] = have[name] + x if name in have else x
+        for key, r in t["k4"].items():
+            if key not in phase5.k4:
+                have = new["k4"].setdefault(key, dict(r, launches=0, live=0))
+                have["launches"] += r["launches"]
+                have["live"] += r["live"]
+        new["k5"] += [(n, off) for n, off in t["k5"] if n not in sizes]
+    log("phase C's launches at buckets phase 5 did not launch:")
+    log_buckets(new)
+    phase_k1(new["k1"], None, legacy=(), packed=False)
+    phase_k2(new["k2"], None, full=False)
+    phase_k3(new["k3"], None)
+    phase_k4(new["k4"], None, {})
+    if new["k5"]:
+        phase_k5(new["k5"], None)
+    log("phase C's buckets: every kernel equal to its plain version")
 
 
 def main() -> None:
@@ -2459,16 +2445,16 @@ def main() -> None:
         # 4. main path, small, against the JAX package's hashes
         phase_e2e(tmp)
         # 5. main path at real size
-        (launches, sc, buckets, k2_buckets, k3_buckets, k4_buckets,
-         k5_uploads, wall_a) = phase_a(tmp)
+        launches, sc, rec, wall_a = phase_a(tmp)
         # 3, K1, K1p, K2, K2p, K2r, K3, K3p, K4, K4w and K5: at the buckets
         # and upload sizes phase 5 launched
-        rows = (phase_k1(buckets, baselines.get("extend.cu"))
-                + phase_k2(k2_buckets, baselines.get("nw_round.cu"))
-                + phase_k3(k3_buckets, baselines.get("nw_dist.cu"))
-                + phase_k4(k4_buckets, baselines.get("round_pack.cu"), k4_fixed)
-                + phase_k5(k5_uploads, baselines.get("store_write.cu"))
+        rows = (phase_k1(rec.k1, baselines.get("extend.cu"))
+                + phase_k2(rec.k2, baselines.get("nw_round.cu"))
+                + phase_k3(rec.k3, baselines.get("nw_dist.cu"))
+                + phase_k4(rec.k4, baselines.get("round_pack.cu"), k4_fixed)
+                + phase_k5(rec.k5, baselines.get("store_write.cu"))
                 + rows)
+
         # 6. where the time goes in later calls
         phase_profile(tmp, PROFILE_CALLS)
         # 7. host-window path on the card
@@ -2489,6 +2475,10 @@ def main() -> None:
         phase_two_processes(tmp, staged_walls)
     # 15. the profiling and bench scripts as processes on the card
     phase_scripts()
+    # 16. phase C at 3 and 28 Mb against the JAX package's digests; 3 at
+    # the buckets it launched that phase 5 did not
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_c_") as tmp:
+        phase_c(phase_c_reference(), tmp, rec)
 
     # each mode's launches in the run that drives it: phase 5 (the main
     # path), phase 7 for K1p, phase 9 for the dense K4 and K4w, phase 3

@@ -15,6 +15,8 @@ kwargs, pass_group)`` written by :func:`run_ranks` and ``OUT`` the
 pickle the worker writes back.  The CPU tests and ``chip_smoke.py`` use
 it, and :func:`dryrun_multigpu` checks ``map_reads``, ``consensus_batch``
 and ``close_gaps`` sharded over ``n`` cards against one card.
+:class:`LaunchRecorder` records each kernel launch's bucket on the main
+path (``chip_smoke.py`` phases 5 and 16, ``scripts/phase_c_torch.py``).
 """
 
 from __future__ import annotations
@@ -26,11 +28,13 @@ import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
 
 __all__ = ["run_ranks", "free_port", "launch_counts", "reset_launch_counts",
+           "k3_counts", "LaunchRecorder",
            "dryrun_multigpu", "dryrun"]
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -79,6 +83,187 @@ def reset_launch_counts() -> None:
                                      "window_dense_launches"))):
         for name in names:
             setattr(mod, name, 0)
+
+
+def k3_counts(meta, TW: int, RW: int) -> dict:
+    """What K3's inputs need: live candidates (a base window), filled
+    read slots (rl > 0), and over both halves and the filled slots, the
+    DP cells min(tl, TW) x (rl + 1) and the word rows min(tl, TW) x
+    ceil(rl / 32), on 32-bit words (a half runs no row where tl <= 0 or
+    tl > TW, a slot none where rl <= 0 or rl > RW); and the counts of
+    the live candidates' base lengths (0 .. TW + 1, longer ones at
+    TW + 1) and of the filled slots' lengths (0 .. RW + 1)."""
+    import torch
+
+    tl = meta[:, :2].long()
+    rl = meta[:, 2:].long()
+    rows = torch.where((tl >= 1) & (tl <= TW), tl, 0).sum(1, keepdim=True)
+    r = torch.where((rl >= 1) & (rl <= RW), rl, 0)
+    base = tl[:, 0][tl[:, 0] > 0].clamp(max=TW + 1)
+    return {"live": int((tl[:, 0] > 0).sum()), "filled": int((rl > 0).sum()),
+            "cells": int((rows * (r + 1) * (r > 0)).sum()),
+            "word_rows": int((rows * ((r + 31) // 32)).sum()),
+            "tl_hist": torch.bincount(base, minlength=TW + 2).cpu().numpy(),
+            "rl_hist": torch.bincount(rl[rl > 0].clamp(max=RW + 1),
+                                      minlength=RW + 2).cpu().numpy()}
+
+
+class LaunchRecorder:
+    """Each main-path kernel launch's bucket in a ``with`` block, through
+    wrappers around the names the pipeline calls the kernels by
+    (``banded.extend`` and ``store_write``, ``consensus.nw_round_packed``,
+    ``nw_round_resident``, ``nw_dist_pairs_packed``, ``round_pack`` and
+    ``window_pack``), put in place on entering and taken out on leaving.
+    The wrappers keep device tensors and read nothing back; leaving the
+    block sums them into, by bucket:
+
+    - ``k1``: (R, N) → [launches, live lanes (a_len > 0), rows];
+    - ``k2``: (mode, T, RL, N) → [launches, live lanes (a template and a
+      read)], mode K2p or K2r;
+    - ``k3``: (V, NB, TW, TWp, RW) → ``launches`` and the sums of
+      :func:`k3_counts`;
+    - ``k4``: (mode, T, N, sparse, resident) → ``launches``, ``live``
+      (the live lanes of the round the same thread ran last) and
+      ``inputs``, the bucket's first launch's, cloned (a resident K4w's
+      template windows cut from the store into a store of their own,
+      their offsets moved with them);
+    - ``k5``: [(characters, store offset)] of each upload.
+    """
+
+    def __init__(self):
+        self._tls = threading.local()
+        self._lock = threading.Lock()
+        self._k1, self._k2, self._k3, self._k4 = [], [], [], []
+        self.k4_inputs, self.k5 = {}, []
+        self._saved = None
+
+    def __enter__(self):
+        from .ops import banded, consensus
+
+        self._saved = [(mod, name, getattr(mod, name)) for mod, name in (
+            (banded, "extend"), (banded, "store_write"),
+            (consensus, "nw_round_packed"), (consensus, "nw_round_resident"),
+            (consensus, "nw_dist_pairs_packed"), (consensus, "round_pack"),
+            (consensus, "window_pack"))]
+        (extend, store_write, k2p, k2r, k3p, k4, k4w) = (
+            fn for _, _, fn in self._saved)
+        tls = self._tls
+
+        def recorded_k1(store, meta12, num_k, R, W=256):
+            self._k1.append((R, meta12.shape[1], meta12[2].clone()))
+            return extend(store, meta12, num_k, R, W)
+
+        def recorded_k5(packed, store, off):
+            self.k5.append((4 * packed.numel(), off))
+            return store_write(packed, store, off)
+
+        def k2_recorder(mode, fn):
+            def recorded_k2(src, meta, **kw):
+                tls.live = ((meta[0] > 0) & (meta[1] > 0)).sum()
+                self._k2.append((mode, kw["T"], kw["RL"], meta.shape[1], tls.live))
+                return fn(src, meta, **kw)
+            return recorded_k2
+
+        def recorded_k3(chars, meta, TW, TWp, RW, NB):
+            self._k3.append(((meta.shape[0], NB, TW, TWp, RW), meta.clone()))
+            return k3p(chars, meta, TW=TW, TWp=TWp, RW=RW, NB=NB)
+
+        def k4_record(key, inputs):
+            with self._lock:
+                self._k4.append((key, getattr(tls, "live", 0)))
+                if key not in self.k4_inputs:
+                    self.k4_inputs[key] = inputs()
+
+        def recorded_k4(chars, fields, centers, T, RL, NWIN, sparse):
+            k4_record(("K4", T, fields[0].shape[0], bool(sparse), False),
+                      lambda: (chars.clone(), tuple(f.clone() for f in fields),
+                               centers.clone(), RL, NWIN))
+            return k4(chars, fields, centers, T, RL, NWIN, sparse=sparse)
+
+        def recorded_k4w(tsrc, meta, fields, centers, sparse, resident):
+            import torch
+
+            def inputs():
+                if not resident:
+                    return (tsrc.clone(), meta.clone(),
+                            tuple(f.clone() for f in fields), centers.clone())
+                N, T = meta.shape[1], fields[0].shape[1]
+                start = meta[3].long().clamp(0, tsrc.numel() - T)
+                store = tsrc[start[:, None] + torch.arange(T, device=tsrc.device)]
+                moved = meta.clone()
+                moved[3] = torch.arange(N, dtype=torch.int32, device=meta.device) * T
+                return (store.reshape(-1).contiguous(), moved,
+                        tuple(f.clone() for f in fields), centers.clone())
+            k4_record(("K4w", fields[0].shape[1], fields[0].shape[0], bool(sparse),
+                       bool(resident)), inputs)
+            return k4w(tsrc, meta, fields, centers, sparse, resident=resident)
+
+        for (mod, name, _), fn in zip(self._saved, (
+                recorded_k1, recorded_k5, k2_recorder("K2p", k2p),
+                k2_recorder("K2r", k2r), recorded_k3, recorded_k4, recorded_k4w)):
+            setattr(mod, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+        self.k1 = {}
+        for R, N, a_len in self._k1:
+            row = self.k1.setdefault((R, N), [0, 0, 0])
+            row[0] += 1
+            row[1] += int((a_len > 0).sum())
+            row[2] += int(a_len.clamp(0, R).sum())
+        self.k2 = {}
+        for mode, T, RL, N, live in self._k2:
+            row = self.k2.setdefault((mode, T, RL, N), [0, 0])
+            row[0] += 1
+            row[1] += int(live)
+        self.k3 = {}
+        for key, meta in self._k3:
+            rec = self.k3.setdefault(key, {"launches": 0})
+            rec["launches"] += 1
+            for name, x in k3_counts(meta, key[2], key[4]).items():
+                rec[name] = rec.get(name, 0) + x
+        self.k4 = {}
+        for key, live in self._k4:
+            rec = self.k4.setdefault(key, {"launches": 0, "live": 0,
+                                           "inputs": self.k4_inputs[key]})
+            rec["launches"] += 1
+            rec["live"] += int(live)
+        self._k1, self._k2, self._k3, self._k4 = [], [], [], []
+        return False
+
+    def tables(self) -> dict:
+        """``k1`` … ``k5`` in one dict, every tensor on the CPU (for
+        ``torch.save``; ``torch.load(..., map_location=device)`` puts the
+        K4 inputs back on a device)."""
+        import torch
+
+        cpu = lambda x: (x.cpu() if isinstance(x, torch.Tensor) else
+                         tuple(cpu(y) for y in x) if isinstance(x, tuple) else x)
+        return {"k1": self.k1, "k2": self.k2, "k3": self.k3,
+                "k4": {k: dict(r, inputs=cpu(r["inputs"])) for k, r in self.k4.items()},
+                "k5": self.k5}
+
+    def summary(self) -> dict:
+        """Launches and live lanes by bucket, for a JSON line: ``"K1 R N"``,
+        ``"K2p T RL N"``, ``"K2r T RL N"``, ``"K3p V NB"`` (live
+        candidates), ``"K4 T N sparse"``, ``"K4w T N sparse"`` →
+        [launches, live]; ``"K5"`` → the upload sizes (characters)."""
+        out = {}
+        for (R, N), (c, live, _) in sorted(self.k1.items()):
+            out[f"K1 {R} {N}"] = [c, live]
+        for (mode, T, RL, N), (c, live) in sorted(self.k2.items()):
+            out[f"{mode} {T} {RL} {N}"] = [c, live]
+        for (V, NB, *_), r in sorted(self.k3.items()):
+            out[f"K3p {V} {NB}"] = [r["launches"], r["live"]]
+        for (mode, T, N, sparse, resident), r in sorted(self.k4.items()):
+            kind = "sparse" if sparse else "dense"
+            if mode == "K4w":
+                kind += " resident" if resident else " host"
+            out[f"{mode} {T} {N} {kind}"] = [r["launches"], r["live"]]
+        out["K5"] = [n for n, _ in self.k5]
+        return out
 
 
 def run_ranks(fn, args=(), kwargs=None, *, n: int, devices, backend: str,

@@ -21,11 +21,13 @@ Both are pure functions of their seeds, so the FASTA files
 :func:`write_scenario` and :func:`write_truth` produce are byte-identical
 across machines.  :func:`staged_commands` is the staged workflow (one
 CLI sub-command per stage, as DENTIST's Snakemake DAG runs them) over
-such files.
+such files, and :func:`phase_c_digests` the digests a run over them is
+held to another run by (:func:`diff_digests` names what differs).
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
 from dataclasses import dataclass
 
@@ -230,3 +232,82 @@ def closed_gap_pairs(bed_rows) -> set:
     return {tuple(int(c) for c in f.split("=")[1].split("-"))
             for row in bed_rows for f in row.split("\t")[3].split(";")
             if f.startswith("contigIds=")}
+
+
+def file_sha256(path: str) -> str:
+    """sha256 of a file's bytes, read 16 MiB at a time."""
+    h = hashlib.sha256()
+    with open(path, "rb") as fh:
+        for block in iter(lambda: fh.read(1 << 24), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+def npz_sha256(path: str) -> str:
+    """sha256 of an npz container's arrays (each one's name, dtype, shape
+    and bytes, by name), not of its zip headers, which carry times."""
+    h = hashlib.sha256()
+    with np.load(path, allow_pickle=False) as z:
+        for key in sorted(z.files):
+            a = np.ascontiguousarray(z[key])
+            h.update(f"{key} {a.dtype.str} {a.shape}\n".encode())
+            h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def gap_digests(records, bed: str) -> dict[str, dict]:
+    """One digest per closed gap, keyed by its BED row's ``contigIds``
+    field: the row and the sha256 of the codes of the inserted sequence
+    it spans in the output ``records``."""
+    seqs = {r.name: r.codes for r in records}
+    out = {}
+    with open(bed) as fh:
+        for row in fh.read().splitlines():
+            name, beg, end, data = row.split("\t")
+            key = data.split(";")[0].split("=")[1]
+            ins = np.ascontiguousarray(seqs[name][int(beg):int(end)])
+            out[key] = {"row": row, "sha256": hashlib.sha256(ins).hexdigest()}
+    return out
+
+
+def phase_c_digests(sc: Scenario, directory: str, workdir: str) -> dict:
+    """The digests a phase C run is held by: the sha256 of the inputs and
+    outputs in ``directory`` (``out.fasta`` with its AGP and BED), the
+    arrays' sha256 (:func:`npz_sha256`) of every stage artifact in
+    ``workdir`` and the sha256 of its ``validation.json``, one digest
+    per closed gap (:func:`gap_digests`), the gaps closed and closed
+    byte-exact, and the inexact ones (:func:`inexact_gaps`)."""
+    def f(name):
+        return os.path.join(directory, name)
+
+    arts = sorted(n for n in os.listdir(workdir) if n.endswith(".mask.npz"))
+    arts += ["reads.las.npz", "pile-ups.npz", "insertions.npz"]
+    artifacts = {n: npz_sha256(os.path.join(workdir, n)) for n in arts}
+    artifacts["validation.json"] = file_sha256(
+        os.path.join(workdir, "validation.json"))
+    records = read_fasta(f("out.fasta"))
+    gaps = gap_digests(records, f("out.closed-gaps.bed"))
+    inexact = inexact_gaps(sc, [r.codes for r in records])
+    return {
+        "inputs": {n: file_sha256(f(n))
+                   for n in ("assembly.fasta", "reads.fasta")},
+        "sha256": {n: file_sha256(f(n)) for n in
+                   ("out.fasta", "out.agp", "out.closed-gaps.bed")},
+        "artifacts": artifacts,
+        "gaps": gaps,
+        "closed": len(gaps),
+        "closed_exactly": len(sc.gaps.iv) - len(inexact),
+        "inexact": [list(g) for g in inexact],
+    }
+
+
+def diff_digests(want: dict, got: dict) -> list[str]:
+    """What differs between two :func:`phase_c_digests`: every file,
+    artifact and closed gap by name (``gap a-b``), in that order."""
+    diffs = [n for part in ("inputs", "sha256", "artifacts")
+             for n in sorted(set(want[part]) | set(got[part]))
+             if want[part].get(n) != got[part].get(n)]
+    diffs += [f"gap {k}" for k in sorted(set(want["gaps"]) | set(got["gaps"]),
+                                         key=lambda k: tuple(map(int, k.split("-"))))
+              if want["gaps"].get(k) != got["gaps"].get(k)]
+    return diffs

@@ -1,7 +1,7 @@
 """The port's entry points besides ``python -m dentist_tpu_torch``: the
 ``dentist-tpu-torch`` console script and the port scripts
-(``scripts/*_torch.py``: the stress and two-process runs, the profiles
-and the K2p bench), which import nothing of JAX or the JAX package and
+(``scripts/*_torch.py``: the stress and two-process runs, the profiles,
+the K2p bench and phase C by digest), which import nothing of JAX or the JAX package and
 refuse to run on a machine without a GPU unless the CPU is asked for
 (their imports all come before the device is chosen, so the refusal
 also runs every import with JAX blocked)."""
@@ -24,6 +24,7 @@ _SCRIPTS = {
     "profile_e2e_process_torch": ["--mb=1", "--gaps=5"],
     "bench_consensus_kernel_torch": [],
     "profile_staged_torch": [],
+    "phase_c_torch": ["--mb", "3"],
 }
 
 
