@@ -161,6 +161,22 @@ Phases (any failure exits non-zero and prints no result line):
    and phase 5 did not (the script's ``LaunchRecorder`` tables, with the
    first K4 and K4w inputs of each bucket; K1 without K1p, K2p without
    K2).
+17. The installed port: what the images of ``packaging/torch/`` do,
+   without ``docker``.  A wheel of the files the image copies
+   (``pyproject.toml``, ``README.md``, the port) is built with ``pip wheel
+   --no-deps --no-build-isolation`` and installed with ``pip install
+   --target`` into a temporary prefix; the packaging's kernel build
+   command (``python -m dentist_tpu_torch._build``) builds the kernels
+   into it from a directory outside the repo; then
+   ``packaging/torch/smoke-test.sh`` runs from there with only the prefix
+   on ``PYTHONPATH``, no ``nvcc`` on ``PATH`` and ``CUDA_HOME`` unset.
+   The smoke test must import the prefix's package, load the prebuilt
+   library without a build (its ``build_seconds`` 0.0, and the prefix's
+   ``_build/`` listing and mtimes as they were), and write phase 4's
+   FASTA, AGP and BED with the JAX package's hashes, launching K1 and a
+   consensus kernel (K2p or K2r).  The ``/usr/local/cuda`` that
+   ``_build`` also probes is still there, so "no build" is shown by that
+   evidence, not by making a build impossible.
 
 The last lines of standard output are the card's ``nvidia-smi`` line,
 the kernels' JSON record and ``{"ok": true, "device": {...}}``.  The
@@ -2390,6 +2406,99 @@ def phase_c_holds(tables: list, phase5) -> None:
     log("phase C's buckets: every kernel equal to its plain version")
 
 
+def run_logged(argv: list, what: str, **kw) -> str:
+    """Run ``argv``; its standard output, or fail with its output's tail."""
+    proc = subprocess.run(argv, capture_output=True, text=True, **kw)
+    if proc.returncode:
+        fail(f"{what} exited {proc.returncode}:\n"
+             f"{(proc.stdout + proc.stderr)[-4000:]}")
+    return proc.stdout
+
+
+def field(out: str, name: str) -> str:
+    """The value of the line ``name: value`` of ``out``."""
+    for line in out.splitlines():
+        if line.startswith(f"{name}: "):
+            return line[len(name) + 2:]
+    fail(f"no '{name}:' line in:\n{out[-4000:]}")
+
+
+def phase_installed(smi: str) -> None:
+    """Phase 17: the port installed from a wheel into a prefix outside
+    the repo, its kernels built by the packaging's build command, then
+    ``packaging/torch/smoke-test.sh`` run against it without a compiler
+    in reach (see the module's docstring)."""
+    import shutil
+
+    t0 = time.perf_counter()
+    py = sys.executable
+    native = os.path.join(HERE, "native")
+    run_logged(["make", "-C", native], "make -C native")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_install_") as tmp:
+        src, wheels, prefix, cwd = (os.path.join(tmp, d)
+                                    for d in ("src", "wheels", "prefix", "run"))
+        os.makedirs(cwd)
+        shutil.copytree(os.path.join(HERE, "dentist_tpu_torch"),
+                        os.path.join(src, "dentist_tpu_torch"),
+                        ignore=shutil.ignore_patterns("_build", "__pycache__"))
+        for name in ("pyproject.toml", "README.md"):
+            shutil.copy(os.path.join(HERE, name), src)
+        pip = [py, "-m", "pip", "--disable-pip-version-check"]
+        pip_env = dict(os.environ, PIP_NO_INDEX="1")
+        run_logged([*pip, "wheel", "--no-deps", "--no-build-isolation",
+                    "--no-index", "-q", "-w", wheels, src], "pip wheel",
+                   cwd=cwd, env=pip_env, timeout=300)
+        (wheel,) = os.listdir(wheels)
+        run_logged([*pip, "install", "--no-deps", "--no-index", "-q",
+                    "--target", prefix, os.path.join(wheels, wheel)],
+                   "pip install --target", cwd=cwd, env=pip_env, timeout=300)
+        csrc = sorted(os.listdir(os.path.join(prefix, "dentist_tpu_torch", "csrc")))
+        log(f"installed port: {wheel} into {prefix}; csrc/ {csrc}")
+
+        build_env = dict(os.environ, PYTHONPATH=prefix)
+        out = run_logged([py, "-m", "dentist_tpu_torch._build"],
+                         "the kernel build command", cwd=cwd, env=build_env,
+                         timeout=600)
+        so, build_s = field(out, "library"), float(field(out, "build seconds").split()[0])
+        if not so.startswith(prefix + os.sep) or not os.path.exists(so) or build_s <= 0:
+            fail(f"installed port: the build command gave {so} in {build_s} s, "
+                 f"not a fresh library under {prefix}")
+        log(f"  python -m dentist_tpu_torch._build: {so} in {build_s:.1f} s, "
+            f"{len(ptxas_lines(out))} kernels in ptxas's report")
+
+        kernels = os.path.dirname(so)
+        listing = {n: os.stat(os.path.join(kernels, n)).st_mtime_ns
+                   for n in os.listdir(kernels)}
+        path = [os.path.join(prefix, "bin"), os.path.dirname(py)] + [
+            d for d in os.environ.get("PATH", "").split(os.pathsep)
+            if d and not os.path.exists(os.path.join(d, "nvcc"))]
+        env = {k: v for k, v in build_env.items() if k != "CUDA_HOME"}
+        env.update(PATH=os.pathsep.join(path),
+                   DENTIST_TPU_NATIVE=os.path.join(native, "libdentistnative.so"))
+        out = run_logged(["sh", "-e", os.path.join(HERE, "packaging", "torch",
+                                                   "smoke-test.sh")],
+                         "packaging/torch/smoke-test.sh", cwd=cwd, env=env,
+                         timeout=600)
+        after = {n: os.stat(os.path.join(kernels, n)).st_mtime_ns
+                 for n in os.listdir(kernels)}
+        package = field(out, "package")
+        launches = json.loads(field(out, "launches"))
+        wall = float(field(out, "pipeline seconds"))
+        if not package.startswith(prefix + os.sep):
+            fail(f"installed port: the smoke test imported {package}, not {prefix}'s")
+        if float(field(out, "build seconds")) != 0.0 or after != listing:
+            fail(f"installed port: the smoke test built the kernels: "
+                 f"{field(out, 'build seconds')} s, _build/ {listing} -> {after}")
+        if not launches["K1"] or not (launches["K2p"] or launches["K2r"]):
+            fail(f"installed port: K1 and K2p or K2r not launched: {launches}")
+    log(f"  smoke test: {package}, kernels loaded without a build (build "
+        f"seconds 0.0, _build/ unchanged: {sorted(listing)}); 60 kb pipeline "
+        f"{wall:.2f} s, FASTA, AGP and BED equal to the JAX package's (sha256)")
+    log(f"  launched: {json.dumps({k: n for k, n in launches.items() if n})}")
+    log(f"installed port: {time.perf_counter() - t0:.1f} s in all, kernel build "
+        f"{build_s:.1f} s; {smi}")
+
+
 def main() -> None:
     import argparse
 
@@ -2479,6 +2588,9 @@ def main() -> None:
     # the buckets it launched that phase 5 did not
     with tempfile.TemporaryDirectory(prefix="chip_smoke_c_") as tmp:
         phase_c(phase_c_reference(), tmp, rec)
+    # 17. the installed port: a wheel in a prefix outside the repo, the
+    # kernels prebuilt by the packaging's build command, its smoke test
+    phase_installed(smi)
 
     # each mode's launches in the run that drives it: phase 5 (the main
     # path), phase 7 for K1p, phase 9 for the dense K4 and K4w, phase 3

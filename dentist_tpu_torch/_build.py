@@ -14,6 +14,20 @@ point takes device pointers, ints and the CUDA stream, and returns
 ``cudaGetLastError()``.
 
 Nothing here runs at import time: the first kernel launch builds.
+
+Where the library lives: :func:`library_path`, ``_build/`` in the
+package's own directory, in a checkout and in an install alike.  A wheel
+of the port carries the sources (``csrc/*.cu``, ``csrc/*.cuh``) as
+package data and nothing of ``_build/``.  The images and the conda
+package of ``packaging/torch/`` build the library when they are built,
+with :data:`BUILD_COMMAND` (``python -m dentist_tpu_torch._build``: it
+compiles and links only, needs ``nvcc`` and no GPU, and imports nothing
+of PyTorch), into the installed package's ``_build/``, so that the first
+launch loads it and builds nothing (``build_seconds`` stays 0.0).  An
+image is read-only at run time: where the library is missing and cannot
+be built (``_build/`` cannot be made or written, no ``nvcc``, or
+``csrc/`` holds no source), :func:`library` raises :class:`KernelError`
+naming the library, its source hash and that command.
 """
 
 from __future__ import annotations
@@ -24,20 +38,23 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import threading
 import time
 from pathlib import Path
 
 from .errors import KernelError
 
-__all__ = ["library", "build_once", "kernel_fn", "check", "launch_lock",
-           "build_seconds", "build_log"]
+__all__ = ["library", "library_path", "build", "build_once", "kernel_fn",
+           "check", "launch_lock", "build_seconds", "build_log", "BUILD_COMMAND"]
 
 _HERE = Path(__file__).resolve().parent
 _SRC = _HERE / "csrc"
 _OUT = _HERE / "_build"
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+#: builds the library where :func:`library` looks for it (see :func:`main`)
+BUILD_COMMAND = "python -m dentist_tpu_torch._build"
 
 _lock = threading.Lock()
 #: guards the wrappers' launch counters: dispatch pools launch from
@@ -63,49 +80,84 @@ def _nvcc() -> str:
                       "the kernels")
 
 
+def library_path() -> Path:
+    """The kernel library that :func:`library` loads: ``_build/`` beside
+    this module, named by a hash of the flags, the sources and their
+    headers.  Builds nothing."""
+    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    for s in sorted(_SRC.glob("*.cu*")):
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    return _OUT / f"libdentist_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _cannot_build(so: Path, why: str) -> KernelError:
+    digest = so.stem.rsplit("_", 1)[1]
+    return KernelError(
+        f"the kernel library {so} (source hash {digest}) is missing and "
+        f"cannot be built here: {why}.  Build it where the CUDA toolkit is "
+        f"(no GPU needed), as a user who may write {so.parent}, with: "
+        f"{BUILD_COMMAND}")
+
+
+def build() -> Path:
+    """Make :func:`library_path` exist and return it: built from
+    ``csrc/`` unless it is there already (``build_seconds`` stays 0.0
+    then).  Raises :class:`KernelError` naming :data:`BUILD_COMMAND`
+    where it cannot build: ``csrc/`` holds no source, there is no
+    ``nvcc``, or ``_build/`` cannot be made or written."""
+    so = library_path()
+    if so.exists():
+        return so
+    sources = sorted(_SRC.glob("*.cu"))
+    if not sources:
+        raise _cannot_build(so, f"{_SRC} holds no .cu source")
+    try:
+        nvcc_bin = _nvcc()
+    except KernelError as exc:
+        raise _cannot_build(so, str(exc)) from None
+
+    def nvcc(tmp: Path) -> None:
+        global build_seconds, build_log
+        t0 = time.perf_counter()
+        objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
+        try:
+            procs = [subprocess.Popen(
+                [nvcc_bin, *_FLAGS, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for src, obj in zip(sources, objs)]
+            logs = [p.communicate()[0] for p in procs]
+            build_log = "".join(logs)
+            failed = [(src.name, p.returncode)
+                      for src, p in zip(sources, procs) if p.returncode]
+            if not failed:
+                link = subprocess.run(
+                    [nvcc_bin, *_ARCH, "-shared", "-o", str(tmp),
+                     *map(str, objs)], capture_output=True, text=True)
+                build_log += link.stdout + link.stderr
+                if link.returncode:
+                    failed = [("link", link.returncode)]
+        finally:
+            for obj in objs:
+                obj.unlink(missing_ok=True)
+        build_seconds = time.perf_counter() - t0
+        if failed:
+            raise KernelError(f"nvcc failed {failed}:\n{build_log}")
+
+    try:
+        build_once(so, nvcc)
+    except OSError as exc:
+        raise _cannot_build(so, f"{so.parent} cannot be made or written "
+                                f"({exc})") from exc
+    return so
+
+
 def library() -> ctypes.CDLL:
-    """The kernel library, built on first use."""
-    global _lib, build_seconds, build_log
+    """The kernel library, built on first use (:func:`build`)."""
+    global _lib
     with _lock:
-        if _lib is not None:
-            return _lib
-        sources = sorted(_SRC.glob("*.cu"))
-        h = hashlib.sha256(" ".join(_FLAGS).encode())
-        for s in sorted(_SRC.glob("*.cu*")):
-            h.update(s.name.encode())
-            h.update(s.read_bytes())
-        so = _OUT / f"libdentist_kernels_{h.hexdigest()[:16]}.so"
-
-        def nvcc(tmp: Path) -> None:
-            global build_seconds, build_log
-            t0 = time.perf_counter()
-            objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
-            try:
-                procs = [subprocess.Popen(
-                    [_nvcc(), *_FLAGS, "-c", str(src), "-o", str(obj)],
-                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-                    for src, obj in zip(sources, objs)]
-                logs = [p.communicate()[0] for p in procs]
-                build_log = "".join(logs)
-                failed = [(src.name, p.returncode)
-                          for src, p in zip(sources, procs) if p.returncode]
-                if not failed:
-                    link = subprocess.run(
-                        [_nvcc(), *_ARCH, "-shared", "-o", str(tmp),
-                         *map(str, objs)], capture_output=True, text=True)
-                    build_log += link.stdout + link.stderr
-                    if link.returncode:
-                        failed = [("link", link.returncode)]
-            finally:
-                for obj in objs:
-                    obj.unlink(missing_ok=True)
-            build_seconds = time.perf_counter() - t0
-            if failed:
-                raise KernelError(f"nvcc failed {failed}:\n{build_log}")
-
-        if not so.exists():
-            build_once(so, nvcc)
-        _lib = ctypes.CDLL(str(so))
+        if _lib is None:
+            _lib = ctypes.CDLL(str(build()))
         return _lib
 
 
@@ -149,3 +201,26 @@ def kernel_fn(name: str, n_ptr: int, n_int: int):
 def check(name: str, status: int) -> None:
     if status != 0:
         raise KernelError(f"{name}: CUDA error {status} at launch")
+
+
+def main() -> int:
+    """``python -m dentist_tpu_torch._build``: build the kernel library
+    into ``_build/`` beside this module, with the flags and the name that
+    :func:`library` looks for, and print its path, the build's seconds
+    and nvcc's output (ptxas's registers, stack and spills per kernel).
+    Compiles and links only: needs ``nvcc``, no GPU.  Exits 1 with the
+    :class:`KernelError`'s text where it cannot build."""
+    try:
+        so = build()
+    except KernelError as exc:
+        print(f"dentist_tpu_torch._build: {exc}", file=sys.stderr)
+        return 1
+    print(f"library: {so}")
+    print(f"build seconds: {build_seconds:.3f}"
+          + ("" if build_log else " (built already)"))
+    print(build_log, end="")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
