@@ -133,13 +133,14 @@ Phases (any failure exits non-zero and prints no result line):
 14. Two processes: phase 10's two ``process-pile-ups --batch`` stages as
    two processes on the card at once; the merged insertions must equal
    phase 10's.
-15. Scripts: ``scripts/profile_e2e_torch.py --small`` (phase C's model at
-   3 Mb, one call), ``scripts/profile_process_torch.py`` and
+15. Scripts: ``scripts/profile_e2e_torch.py`` (phase C's model at
+   ``PROFILE_E2E_SIZE``, 0.2 Mb / 3 gaps, one call: phases 16 and 18 run
+   phase C at 3 Mb and hold it by digest, so this is the script's run
+   check alone), ``scripts/profile_process_torch.py`` and
    ``scripts/bench_consensus_kernel_torch.py`` as processes on the card;
    each must exit 0 and print its JSON line, the first two must launch
-   every kernel of the main path (phase 16 holds the first one's
-   scenario to the JAX package's run by digest), and the bench must
-   take every shape, equal to its plain version where it holds it.
+   every kernel of the main path, and the bench must take every shape,
+   equal to its plain version where it holds it.
 16. Phase C by digest: ``scenarios.phase_c_scenario`` at 3 Mb / 16 gaps
    and at 28 Mb / 147 gaps (the reference example's scale) through
    ``run_pipeline`` with a workdir, each from a fresh device store, in a
@@ -177,6 +178,14 @@ Phases (any failure exits non-zero and prints no result line):
    consensus kernel (K2p or K2r).  The ``/usr/local/cuda`` that
    ``_build`` also probes is still there, so "no build" is shown by that
    evidence, not by making a build impossible.
+18. The bench: ``bench_torch.py --small`` (``bench.py``'s phases A and B,
+   then phase C at 3 Mb / 16 gaps in three ``run_pipeline`` trials) as a
+   process on the card.  It must exit 0 and print its JSON line, with
+   every gate passed (each phase A and B trial equal to the JAX
+   package's digests in ``scripts/bench_reference.json``, phase C's
+   inputs and each trial's digests to ``scripts/phase_c_reference.json``'s
+   3 Mb entry), three phase C trials timed, and every kernel of the main
+   path launched in each of them.  Logs the headline and the band.
 
 The last lines of standard output are the card's ``nvidia-smi`` line,
 the kernels' JSON record and ``{"ok": true, "device": {...}}``.  The
@@ -301,6 +310,16 @@ PHASE_C_SIZES = ((3, 16), (28, 147))
 #: the kernels of the main path, which the pipeline runs of phases 5, 15
 #: and 16 must launch
 MAIN_PATH_KERNELS = ("K1", "K2p", "K2r", "K3p", "K4", "K4w", "K5")
+
+#: phase 15: the size (Mb, gaps) of phase C's model that
+#: ``scripts/profile_e2e_torch.py`` runs, a check that the script runs
+#: and launches every kernel of the main path
+PROFILE_E2E_SIZE = (0.2, 3)
+
+#: phase 18: the gates ``bench_torch.py`` passes, in order: phase A's
+#: three trials, phase B's pile-ups and two trials, phase C's inputs and
+#: three trials
+BENCH_GATES = ["A0", "A1", "A2", "collect", "B0", "B1", "C inputs", "C0", "C1", "C2"]
 
 #: phase-6 runs: the later calls of a process, without its first-call costs
 PROFILE_CALLS = 3
@@ -2263,13 +2282,14 @@ def phase_two_processes(tmp: str, staged_walls: dict) -> None:
     log("  merged insertions equal to phase 10's (arrays sha256)")
 
 
-def run_script(name: str, *args: str) -> dict:
-    """``scripts/<name>.py`` with ``args`` as a process on this card: it
-    must exit 0 within 600 s; returns the JSON object of its last line."""
+def run_script(name: str, *args: str, where: str = "scripts") -> dict:
+    """``<where>/<name>.py`` (``where`` "" for the root) with ``args`` as
+    a process on this card: it must exit 0 within 600 s; returns the JSON
+    object of its last line."""
     env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
     t0 = time.perf_counter()
     try:
-        proc = subprocess.run([sys.executable, os.path.join(HERE, "scripts", f"{name}.py"),
+        proc = subprocess.run([sys.executable, os.path.join(HERE, where, f"{name}.py"),
                                *args], cwd=HERE, env=env, capture_output=True,
                               text=True, timeout=600)
     except subprocess.TimeoutExpired:
@@ -2295,11 +2315,13 @@ def phase_c_reference() -> dict:
 
 def phase_scripts() -> None:
     """The ported profiling and bench scripts as processes on the card
-    (phase 16 holds phase C's 3 Mb run, which ``--small`` profiles, to
-    the JAX package's by digest)."""
-    e2e = run_script("profile_e2e_torch", "--small", "--calls", "1")
+    (phases 16 and 18 hold phase C's 3 Mb run to the JAX package's by
+    digest, so the profile runs at ``PROFILE_E2E_SIZE``)."""
+    mb, gaps = PROFILE_E2E_SIZE
+    e2e = run_script("profile_e2e_torch", "--mb", str(mb), "--gaps", str(gaps),
+                     "--calls", "1")
     call = e2e["calls"][0]
-    log(f"  phase C at 3 Mb / {e2e['scenario']['n_gaps']} gaps: {call['wall_s']:.2f} s, "
+    log(f"  phase C at {mb} Mb / {e2e['scenario']['n_gaps']} gaps: {call['wall_s']:.2f} s, "
         f"{e2e['numClosedGaps']} closed, {e2e['numCorrectGaps']} correct; busy "
         f"{call['busy']['ms']:.1f} ms; launches {json.dumps(call['launches'])}")
     proc = run_script("profile_process_torch")
@@ -2404,6 +2426,33 @@ def phase_c_holds(tables: list, phase5) -> None:
     if new["k5"]:
         phase_k5(new["k5"], None)
     log("phase C's buckets: every kernel equal to its plain version")
+
+
+def phase_bench() -> None:
+    """Phase 18: ``bench_torch.py --small`` as a process on the card (see
+    the module's docstring)."""
+    line = run_script("bench_torch", "--small", where="")
+    if line.get("gates_passed") != BENCH_GATES:
+        fail(f"bench: gates passed {line.get('gates_passed')}, not {BENCH_GATES}")
+    close, trials = line["pipeline_trial_seconds"], line["pipeline_trials"]
+    if len(close) != 3 or len(trials) != 3:
+        fail(f"bench: {len(close)} phase C trials timed, {len(trials)} recorded; 3 wanted")
+    for i, t in enumerate(trials):
+        missing = [m for m in MAIN_PATH_KERNELS if not t["launches"].get(m)]
+        if missing:
+            fail(f"bench: phase C trial {i} launched not {missing}: {t['launches']}")
+    log(f"  {line['nvidia_smi']}; kernels loaded in {line['build_seconds']:.1f} s, "
+        f"warmup {line['warmup_seconds']:.2f} s")
+    log(f"  phase A: {line['reads_aligned_per_second_per_chip']:.2f} reads/s, "
+        f"trials {json.dumps([round(x, 2) for x in line['align_trial_seconds']])} s; "
+        f"phase B: {line['pileups_per_second']:.2f} pile-ups/s, trials "
+        f"{json.dumps([round(x, 2) for x in line['process_trial_seconds']])} s")
+    log(f"  phase C {line['scenario_e2e']['mb']} Mb / {line['n_gaps_e2e']} gaps: "
+        f"headline {line['value']:.3f}x the reference's 420 s; close_gaps median "
+        f"{line['pipeline_seconds']:.2f} s, band "
+        f"{json.dumps([round(x, 2) for x in close])} s (trial 0 first); run_pipeline "
+        f"{json.dumps([round(x, 2) for x in line['run_pipeline_trial_seconds']])} s; "
+        f"{line['n_closed_gaps_e2e']} closed; gates {', '.join(BENCH_GATES)} passed")
 
 
 def run_logged(argv: list, what: str, **kw) -> str:
@@ -2591,6 +2640,8 @@ def main() -> None:
     # 17. the installed port: a wheel in a prefix outside the repo, the
     # kernels prebuilt by the packaging's build command, its smoke test
     phase_installed(smi)
+    # 18. the port's bench, phase C at 3 Mb
+    phase_bench()
 
     # each mode's launches in the run that drives it: phase 5 (the main
     # path), phase 7 for K1p, phase 9 for the dense K4 and K4w, phase 3

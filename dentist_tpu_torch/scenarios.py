@@ -23,6 +23,10 @@ across machines.  :func:`staged_commands` is the staged workflow (one
 CLI sub-command per stage, as DENTIST's Snakemake DAG runs them) over
 such files, and :func:`phase_c_digests` the digests a run over them is
 held to another run by (:func:`diff_digests` names what differs).
+:func:`write_phase_c` and :func:`run_phase_c` are the one phase C runner
+that ``scripts/phase_c_torch.py`` and ``bench_torch.py`` share, and
+:func:`result_digests` digests in-memory stage results (``bench_torch.py``'s
+phases A and B) as :func:`phase_c_digests` digests stage artifacts.
 """
 
 from __future__ import annotations
@@ -44,7 +48,8 @@ __all__ = ["Scenario", "e2e_scenario", "phase_a_scenario", "phase_c_scenario",
            "scaffolds_repeats_scenario", "unrelated_reads", "write_scenario",
            "repeat_assembly", "write_truth", "staged_commands",
            "closed_exactly", "closed_exactly_in", "inexact_gaps",
-           "closed_gap_pairs"]
+           "closed_gap_pairs", "result_digests", "write_phase_c",
+           "run_phase_c"]
 
 
 @dataclass
@@ -243,16 +248,59 @@ def file_sha256(path: str) -> str:
     return h.hexdigest()
 
 
-def npz_sha256(path: str) -> str:
-    """sha256 of an npz container's arrays (each one's name, dtype, shape
-    and bytes, by name), not of its zip headers, which carry times."""
+def arrays_sha256(arrays) -> str:
+    """sha256 of named arrays (each one's name, dtype, shape and bytes,
+    by name)."""
     h = hashlib.sha256()
-    with np.load(path, allow_pickle=False) as z:
-        for key in sorted(z.files):
-            a = np.ascontiguousarray(z[key])
-            h.update(f"{key} {a.dtype.str} {a.shape}\n".encode())
-            h.update(a.tobytes())
+    for key in sorted(arrays):
+        a = np.ascontiguousarray(arrays[key])
+        h.update(f"{key} {a.dtype.str} {a.shape}\n".encode())
+        h.update(a.tobytes())
     return h.hexdigest()
+
+
+def npz_sha256(path) -> str:
+    """:func:`arrays_sha256` of an npz container's arrays (a path or an
+    open file), not of its zip headers, which carry times."""
+    with np.load(path, allow_pickle=False) as z:
+        return arrays_sha256({key: z[key] for key in z.files})
+
+
+#: the arrays of a ``*.las.npz`` that hold its chains, not its alignments
+CHAIN_ARRAYS = ("chain_lens", "chain_indices", "chain_scores", "chain_alternate")
+
+
+def result_digests(las=None, chains=None, pile_ups=None, insertions=None
+                   ) -> dict[str, str]:
+    """The arrays' sha256 of in-memory stage results, taken as
+    :func:`phase_c_digests` takes their stage artifacts: the arrays
+    ``io.store`` saves to ``reads.las.npz`` (``alignments``, and
+    ``chains`` for the :data:`CHAIN_ARRAYS`), ``pile-ups.npz``
+    (``pile-ups``) and ``insertions.npz`` (``insertions``), for each
+    result given."""
+    import io
+
+    from .io.store import save_alignments, save_insertions, save_pile_ups
+
+    def arrays(save, *objs):
+        buf = io.BytesIO()
+        save(buf, *objs)
+        buf.seek(0)
+        with np.load(buf, allow_pickle=False) as z:
+            return {key: z[key] for key in z.files}
+
+    out = {}
+    if las is not None:
+        z = arrays(save_alignments, las, chains)
+        out["alignments"] = arrays_sha256(
+            {k: a for k, a in z.items() if k not in CHAIN_ARRAYS})
+        if chains is not None:
+            out["chains"] = arrays_sha256({k: z[k] for k in CHAIN_ARRAYS})
+    if pile_ups is not None:
+        out["pile-ups"] = arrays_sha256(arrays(save_pile_ups, pile_ups))
+    if insertions is not None:
+        out["insertions"] = arrays_sha256(arrays(save_insertions, insertions))
+    return out
 
 
 def gap_digests(records, bed: str) -> dict[str, dict]:
@@ -270,9 +318,11 @@ def gap_digests(records, bed: str) -> dict[str, dict]:
     return out
 
 
-def phase_c_digests(sc: Scenario, directory: str, workdir: str) -> dict:
-    """The digests a phase C run is held by: the sha256 of the inputs and
-    outputs in ``directory`` (``out.fasta`` with its AGP and BED), the
+def phase_c_digests(sc: Scenario, directory: str, workdir: str,
+                    inputs: str | None = None) -> dict:
+    """The digests a phase C run is held by: the sha256 of the inputs in
+    ``inputs`` (default ``directory``) and of the outputs in
+    ``directory`` (``out.fasta`` with its AGP and BED), the
     arrays' sha256 (:func:`npz_sha256`) of every stage artifact in
     ``workdir`` and the sha256 of its ``validation.json``, one digest
     per closed gap (:func:`gap_digests`), the gaps closed and closed
@@ -289,7 +339,7 @@ def phase_c_digests(sc: Scenario, directory: str, workdir: str) -> dict:
     gaps = gap_digests(records, f("out.closed-gaps.bed"))
     inexact = inexact_gaps(sc, [r.codes for r in records])
     return {
-        "inputs": {n: file_sha256(f(n))
+        "inputs": {n: file_sha256(os.path.join(inputs or directory, n))
                    for n in ("assembly.fasta", "reads.fasta")},
         "sha256": {n: file_sha256(f(n)) for n in
                    ("out.fasta", "out.agp", "out.closed-gaps.bed")},
@@ -311,3 +361,82 @@ def diff_digests(want: dict, got: dict) -> list[str]:
                                          key=lambda k: tuple(map(int, k.split("-"))))
               if want["gaps"].get(k) != got["gaps"].get(k)]
     return diffs
+
+
+def write_phase_c(d: str, mb: float, gaps: int, want_inputs: dict
+                  ) -> tuple[Scenario, str, str, float]:
+    """``phase_c_scenario(mb, gaps)`` written to ``d`` (``assembly.fasta``,
+    ``reads.fasta``, ``truth.fasta``); stops the process if an input does
+    not hash as ``want_inputs`` says (a reference entry's ``inputs``: the
+    data generator drifted).  Returns the scenario, the assembly's and
+    the reads' paths, and the seconds taken."""
+    import sys
+    import time
+
+    t0 = time.perf_counter()
+    sc = phase_c_scenario(mb=mb, n_gaps=gaps)
+    asm, reads = write_scenario(sc, d)
+    write_truth(sc, d)
+    seconds = time.perf_counter() - t0
+    for path in (asm, reads):
+        name, got = os.path.basename(path), file_sha256(path)
+        if got != want_inputs[name]:
+            sys.exit(f"phase C {mb:g} Mb: the data generator drifted: {name} "
+                     f"sha256 {got} != the reference's {want_inputs[name]}")
+    return sc, asm, reads, seconds
+
+
+def run_phase_c(sc: Scenario, asm: str, reads: str, d: str, cuda: bool,
+                recorder=None) -> dict:
+    """One phase C run: ``run_pipeline`` on ``asm`` and ``reads`` (as
+    :func:`write_phase_c` wrote them) with its output in ``d``
+    (``out.fasta`` and its AGP and BED) and every stage artifact in
+    ``d/work``, from a fresh device store, the stage seconds and launch
+    counts set to 0 first; on the card (``cuda``) its peak device memory
+    counted from the start and its clock stopped after a synchronize.
+    ``recorder``, a :class:`~dentist_tpu_torch.dryrun.LaunchRecorder`,
+    records every launch's bucket (it keeps K3p metas and K4 inputs on
+    the card, so without one the run is as a user's).  Returns the wall,
+    ``STAGE_SECONDS`` by key, launches per kernel mode, store resets,
+    peak device memory and host RSS (GiB), the recorder's ``summary()``
+    as ``buckets``, and the run's :func:`phase_c_digests` with the
+    seconds they took."""
+    import contextlib
+    import resource
+    import time
+
+    import torch
+
+    from .dryrun import launch_counts, reset_launch_counts
+    from .ops import banded
+    from .pipeline import (STAGE_SECONDS, PipelineConfig,
+                           reset_stage_seconds, run_pipeline)
+    from .utils.log import tee_log_file
+
+    work = os.path.join(d, "work")
+    banded.reset_device_store()
+    reset_stage_seconds()
+    reset_launch_counts()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    epoch0 = banded.device_store().epoch
+    with recorder or contextlib.nullcontext():
+        t0 = time.perf_counter()
+        run_pipeline(asm, reads, os.path.join(d, "out.fasta"),
+                     PipelineConfig(read_coverage=20.0, workdir=work))
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    tee_log_file(None)  # run_pipeline tees its log into the workdir
+    run = {"wall_s": wall, "stage_seconds": dict(STAGE_SECONDS),
+           "launches": {k: v for k, v in launch_counts().items() if v},
+           "store_resets": banded.device_store().epoch - epoch0,
+           "peak_device_gib": (torch.cuda.max_memory_allocated() / 2**30
+                               if cuda else None),
+           "peak_rss_gib": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20}
+    if recorder is not None:
+        run["buckets"] = recorder.summary()
+    t0 = time.perf_counter()
+    run["digests"] = phase_c_digests(sc, d, work, inputs=os.path.dirname(asm))
+    run["digest_s"] = time.perf_counter() - t0
+    return run

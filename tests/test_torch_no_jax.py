@@ -128,6 +128,23 @@ def test_chip_smoke_fails_without_gpu():
     assert '"ok": true' not in proc.stdout
 
 
+def test_bench_imports_no_jax_and_fails_without_gpu(tmp_path):
+    """``bench_torch.py`` names no JAX import, and on a machine without a
+    GPU it refuses, printing no result and writing nothing."""
+    import torch
+
+    path = os.path.join(ROOT, "bench_torch.py")
+    text = open(path).read()
+    assert not _imported_packages(text) & set(_BLOCKED)
+    assert "import dentist_tpu\n" not in text and "from dentist_tpu." not in text
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: bench_torch.py would run for real")
+    proc = _run("", path, cwd=tmp_path)
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+    assert not proc.stdout and not os.listdir(tmp_path)
+
+
 def test_cli_refuses_cuda_without_gpu_and_unported_commands(tmp_path):
     """Every sub-command is ported: the command line lists all 37 and
     refuses only names it does not know; without a GPU its device

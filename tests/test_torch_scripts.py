@@ -1,10 +1,13 @@
 """The port's entry points besides ``python -m dentist_tpu_torch``: the
 ``dentist-tpu-torch`` console script and the port scripts
 (``scripts/*_torch.py``: the stress and two-process runs, the profiles,
-the K2p bench and phase C by digest), which import nothing of JAX or the JAX package and
-refuse to run on a machine without a GPU unless the CPU is asked for
-(their imports all come before the device is chosen, so the refusal
-also runs every import with JAX blocked)."""
+the K2p bench and phase C by digest; and ``bench_torch.py`` at the
+root), which import nothing of JAX or the JAX package and refuse to run
+on a machine without a GPU unless the CPU is asked for (their imports
+all come before the device is chosen, so the refusal also runs every
+import with JAX blocked).  The JAX package's reference generators
+(``scripts/*_reference.py``) import it by design; nothing of the port
+imports them."""
 
 import importlib
 import os
@@ -25,7 +28,20 @@ _SCRIPTS = {
     "bench_consensus_kernel_torch": [],
     "profile_staged_torch": [],
     "phase_c_torch": ["--mb", "3"],
+    "bench_torch": ["--small"],
 }
+
+#: the scripts that run the JAX package to write a reference the port is
+#: held to
+_REFERENCES = ("phase_c_reference", "scaffolds_repeats_reference",
+               "bench_reference")
+
+
+def _path(name: str) -> str:
+    """A port script's path: ``bench_torch.py`` sits at the root, beside
+    ``bench.py``; the others in ``scripts/``."""
+    return os.path.join(ROOT, *(() if name == "bench_torch" else ("scripts",)),
+                        f"{name}.py")
 
 
 def test_console_script_is_the_port_cli():
@@ -41,7 +57,7 @@ def test_console_script_is_the_port_cli():
 
 @pytest.mark.parametrize("name", _SCRIPTS)
 def test_port_script_imports_without_jax(name):
-    path = os.path.join(ROOT, "scripts", f"{name}.py")
+    path = _path(name)
     text = open(path).read()
     assert not _imported_packages(text) & set(_BLOCKED)
     assert "dentist_tpu." not in text.replace("dentist_tpu_torch.", "")
@@ -65,7 +81,7 @@ def test_port_script_refuses_without_gpu(name, tmp_path):
 
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the script would run for real")
-    path = os.path.join(ROOT, "scripts", f"{name}.py")
+    path = _path(name)
     code = _BLOCK_JAX + f"""
 import runpy
 sys.argv = [{path!r}, *{_SCRIPTS[name]!r}]
@@ -81,3 +97,17 @@ finally:
     assert "no CUDA device" in proc.stderr
     assert "is blocked" not in proc.stderr
     assert not proc.stdout and not os.listdir(tmp_path)
+
+
+@pytest.mark.parametrize("name", _REFERENCES)
+def test_nothing_of_the_port_imports_a_reference_generator(name):
+    """A reference generator imports the JAX package, which the port and
+    its scripts never do: none of them imports one."""
+    text = open(os.path.join(ROOT, "scripts", f"{name}.py")).read()
+    assert "dentist_tpu" in _imported_packages(text)
+    files = [os.path.join(dirpath, f)
+             for dirpath, _, fs in os.walk(os.path.join(ROOT, "dentist_tpu_torch"))
+             for f in fs if f.endswith(".py")]
+    files += [_path(n) for n in _SCRIPTS] + [os.path.join(ROOT, "chip_smoke.py")]
+    for path in files:
+        assert name not in _imported_packages(open(path).read()), path
