@@ -1,7 +1,7 @@
 """Benchmark of the port: ``bench.py``'s three phases on one GPU, each
 held to the JAX package's run by digest.
 
-    python3 bench_torch.py [--small] [--device cuda|cpu]
+    python3 bench_torch.py [--small] [--trials N] [--device cuda|cpu]
 
 The port of ``bench.py``.  It runs on ``--device``, the card unless
 ``cpu`` is asked for, and refuses without a GPU otherwise.  It builds or
@@ -32,6 +32,10 @@ loads the kernels first and reports their seconds apart
   reference example on an i5-5200U) over the median trial's
   ``close_gaps`` wall.  Trial 0 is the process's first phase C call and
   is reported apart as well as inside the band.
+
+``--trials N`` runs N trials of each phase instead (``chip_smoke.py``
+phase 18 runs one of each, a check that the bench runs and passes its
+gates).
 
 Where this differs from ``bench.py``, and why:
 
@@ -389,6 +393,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--small", action="store_true",
                     help='phase C at 3 Mb / 16 gaps (the reference\'s "3" entry)')
+    ap.add_argument("--trials", type=int,
+                    help=f"N trials of each phase (default: {ALIGN_TRIALS} of "
+                         f"A, {PROCESS_TRIALS} of B, {PIPELINE_TRIALS} of C)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args()
 
@@ -424,9 +431,9 @@ def main():
     warmup_s = stopped(cuda) - t0
     log(f"warmup pass: {warmup_s:.2f} s")
 
-    a = phase_a(contigs, reads, read_store, ALIGN_TRIALS, cuda)
+    a = phase_a(contigs, reads, read_store, args.trials or ALIGN_TRIALS, cuda)
     b = phase_b(a.pop("las"), a.pop("chains"), contigs, structure, reads,
-                PROCESS_TRIALS, cuda)
+                args.trials or PROCESS_TRIALS, cuda)
     gates = hold_ab(ab_ref, a, b)
     log(f"phases A and B: every trial's digests equal to the JAX package's "
         f"({', '.join(gates)})")
@@ -437,7 +444,7 @@ def main():
         torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory(prefix="bench_torch_") as tmp:
-        c = phase_c(c_entry, tmp, PIPELINE_TRIALS, cuda)
+        c = phase_c(c_entry, tmp, args.trials or PIPELINE_TRIALS, cuda)
     gates += ["C inputs"] + [f"C{i}" for i in range(len(c["trials"]))]
 
     line = result_line(warmup_s, a, b, c)

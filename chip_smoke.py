@@ -32,7 +32,11 @@ Phases (any failure exits non-zero and prints no result line):
    over HBM bandwidth or integer operations over the INT32 issue rate,
    whichever is larger; K3, K3p and K3f count 11 operations of their word
    step per template row and 32 read columns, over the rows each answer
-   depends on).  K1 and K1p run after phase 5, at every (R, N)
+   depends on).  K1t, K1's table mode (the JAX package's eight-array
+   dispatch, which no path runs), at the shapes of its tests
+   (``K1T_CASES``: W = 64, R = 252) and at (R, N) = (1512, 1024), each on
+   the ladder of its slopes (and there equal to K1 on the same lanes) and
+   on a table with random-walk schedules.  K1 and K1p run after phase 5, at every (R, N)
    bucket pair it launched K1 at and at (1512, 128) and (13608, 1024),
    with their ratio to the bound (with ``--baseline``, the other K1 and
    K1p at those two pairs, on the same inputs).  K2, K2p
@@ -156,10 +160,17 @@ Phases (any failure exits non-zero and prints no result line):
    closed byte-exact must be at least its counts, and every kernel of
    the main path must have launched.  Logs the wall and stage seconds,
    K1p launches and store resets, peak device memory and RSS, launches
-   per kernel and per bucket, and what differs, if anything.  Then phase
+   per kernel and per bucket, and what differs, if anything.  Then a
+   third run in this process: phase C at ``OVERFLOW_SIZE`` (3 Mb) with a
+   device store of ``OVERFLOW_STORE_MB`` MiB, which holds the assembly
+   and not the reads, so their alignment takes host windows and the store
+   resets, as a user's does at 100 Mb and above: it must equal the same
+   reference entry in every digest and launch K1 (the assembly's
+   self-alignment, resident), K1p and at least one reset; logs the store
+   size, the wall and the K1, K1p and K5 launches.  Then phase
    3 once more: every kernel of the main path against its plain version
-   (tolerance 0) at each bucket and K5 upload size the two runs launched
-   and phase 5 did not (the script's ``LaunchRecorder`` tables, with the
+   (tolerance 0) at each bucket and K5 upload size the three runs launched
+   and phase 5 did not (the ``LaunchRecorder`` tables, with the
    first K4 and K4w inputs of each bucket; K1 without K1p, K2p without
    K2).
 17. The installed port: what the images of ``packaging/torch/`` do,
@@ -178,14 +189,28 @@ Phases (any failure exits non-zero and prints no result line):
    consensus kernel (K2p or K2r).  The ``/usr/local/cuda`` that
    ``_build`` also probes is still there, so "no build" is shown by that
    evidence, not by making a build impossible.
-18. The bench: ``bench_torch.py --small`` (``bench.py``'s phases A and B,
-   then phase C at 3 Mb / 16 gaps in three ``run_pipeline`` trials) as a
-   process on the card.  It must exit 0 and print its JSON line, with
-   every gate passed (each phase A and B trial equal to the JAX
-   package's digests in ``scripts/bench_reference.json``, phase C's
-   inputs and each trial's digests to ``scripts/phase_c_reference.json``'s
-   3 Mb entry), three phase C trials timed, and every kernel of the main
-   path launched in each of them.  Logs the headline and the band.
+18. The bench: ``bench_torch.py --small --trials 1`` (``bench.py``'s
+   phases A and B, then phase C at 3 Mb / 16 gaps through
+   ``run_pipeline``, one trial of each: phase 16 holds that run by
+   digest, so this is the bench's run check) as a process on the card.
+   It must exit 0 and print its JSON line, with every gate passed (phase
+   A's and B's trial equal to the JAX package's digests in
+   ``scripts/bench_reference.json``, phase C's inputs and its trial's
+   digests to ``scripts/phase_c_reference.json``'s 3 Mb entry), the
+   phase C trial timed, and every kernel of the main path launched in it.
+   Logs the headline.
+19. The JAX package's tests: every scenario of
+   ``dentist_tpu_torch.scenarios.SUITE`` (the gap-closing cases of its
+   ``tests/test_anchor_unique.py``, ``test_bubbles.py``,
+   ``test_overlap_crop.py``, ``test_multiscaffold.py`` and
+   ``test_validation_pass.py``, and the read sets of
+   ``tests/test_consensus.py``) through the port in this process
+   (``scenarios.run_suite``), each held to the JAX package's CPU run of
+   the same scenario by its ``scenarios.suite_digests``
+   (``scenarios.SUITE_REFERENCE``), every kernel of the main path
+   launched.  Then phase 3 once more, at each bucket and K5 upload size
+   those runs launched that phases 5 and 16 did not.  Logs each
+   scenario's seconds.
 
 The last lines of standard output are the card's ``nvidia-smi`` line,
 the kernels' JSON record and ``{"ok": true, "device": {...}}``.  The
@@ -200,7 +225,8 @@ K3p against, and are timed in its log.  K3f and K3b (the JAX package's
 ``_nw_dist_full`` with free-shift ends and ``_banded_nw_dist``) are on no
 path: nothing in the JAX package calls them, its polish scorer being
 ``_nw_dist_pair_packed`` (K3p), so nothing in the port does; their
-record carries their launches in phase 3.
+record carries their launches in phase 3, as K1t's does (the JAX
+package calls ``extend_batch_multi_async`` only from its tests).
 """
 
 import hashlib
@@ -307,8 +333,22 @@ PHASE_C_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                  "scripts", "phase_c_reference.json")
 #: phase 16's sizes (Mb, gaps), each against its entry of the file above
 PHASE_C_SIZES = ((3, 16), (28, 147))
-#: the kernels of the main path, which the pipeline runs of phases 5, 15
-#: and 16 must launch
+#: phase 16's third run: phase C at this size (Mb, gaps), against the same
+#: entry, with a device store of ``OVERFLOW_STORE_MB`` MiB, which holds
+#: the assembly and not the reads (about 62 M characters): their
+#: alignment takes host windows (K1p) and the store resets, as a user's
+#: does at 100 Mb and above, while the assembly's self-alignment stays
+#: resident (K1)
+OVERFLOW_SIZE = (3, 16)
+OVERFLOW_STORE_MB = 32
+# Phase 19 reads the JAX package's run of the suite scenarios
+# (``dentist_tpu_torch.scenarios.SUITE``: the cases of its tests of the
+# modules that reach the device) from ``scenarios.SUITE_REFERENCE``, which
+# the reference script it names writes (x86-64 CPU, JAX on its CPU
+# backend): each scenario's ``scenarios.suite_digests`` under its key of
+# ``"scenarios"``.
+#: the kernels of the main path, which the pipeline runs of phases 5, 15,
+#: 16 and 19 must launch
 MAIN_PATH_KERNELS = ("K1", "K2p", "K2r", "K3p", "K4", "K4w", "K5")
 
 #: phase 15: the size (Mb, gaps) of phase C's model that
@@ -316,10 +356,13 @@ MAIN_PATH_KERNELS = ("K1", "K2p", "K2r", "K3p", "K4", "K4w", "K5")
 #: and launches every kernel of the main path
 PROFILE_E2E_SIZE = (0.2, 3)
 
-#: phase 18: the gates ``bench_torch.py`` passes, in order: phase A's
-#: three trials, phase B's pile-ups and two trials, phase C's inputs and
-#: three trials
-BENCH_GATES = ["A0", "A1", "A2", "collect", "B0", "B1", "C inputs", "C0", "C1", "C2"]
+#: phase 18: the trials of each phase that ``bench_torch.py --small`` runs
+#: (phases 16 and 19 hold the port's runs by digest; this is the bench's
+#: run check)
+BENCH_TRIALS = 1
+#: the gates it passes, in order: phase A's trial, phase B's pile-ups and
+#: trial, phase C's inputs and trial
+BENCH_GATES = ["A0", "collect", "B0", "C inputs", "C0"]
 
 #: phase-6 runs: the later calls of a process, without its first-call costs
 PROFILE_CALLS = 3
@@ -700,17 +743,18 @@ def k2p_pack(args, window: bool):
     return torch.from_numpy(chars).cuda(), torch.from_numpy(meta).cuda()
 
 
-def k1_work(meta, R: int, W: int, packed: bool) -> dict:
+def k1_work(meta, R: int, W: int, packed: bool, table=None) -> dict:
     """K1's bound: the band cells of every lane's rows up to its a_len;
-    A and B windows (packed: their 2-bit rows) and meta in, the result
-    block out."""
+    A and B windows (packed: their 2-bit rows), meta and (K1t) the int32
+    offset ``table`` in, the result block out."""
     from dentist_tpu_torch.ops.banded import bw_for
 
     N = meta.shape[1]
     BW = bw_for(R, W)
     cells = int(meta[2].clamp(0, R).sum()) * W
     win = N * (R + BW) // 4 if packed else N * (R + BW)
-    io = win + nbytes(meta) + N * 4 * (4 + R // 126)
+    io = (win + nbytes(meta) + N * 4 * (4 + R // 126)
+          + (4 * table.size if table is not None else 0))
     return bound(io, OPS_PER_CELL["K1"] * cells)
 
 
@@ -1157,6 +1201,7 @@ def phase_kernels(nw_dist_old=None):
         k3f = merge(k3f, hold_k3f(what, args, T, ends, nw_dist_old))
     if not nw_dist_old:
         log("  no nw_dist.cu in --baseline: no other K3b or K3f version timed")
+    rows.append(phase_k1t())
     phase3 = launch_counts()
     rows.append(("K3f nw_dist_full", "dentist_tpu_torch/csrc/nw_dist.cu",
                  "dentist_tpu/ops/consensus.py:1936", "phase3", "K3f", k3f))
@@ -1293,6 +1338,88 @@ def phase_k1(buckets: dict, baseline, legacy=K1_LEGACY, packed: bool = True) -> 
              "dentist_tpu/ops/banded.py:62", "main", "K1", k1),
             ("K1p extend_packed", "dentist_tpu_torch/csrc/extend.cu",
              "dentist_tpu/ops/banded.py:249", "host_windows", "K1p", k1p)]
+
+
+#: phase 3's K1t cases (W, N, R, K, seed, diagonal bounds): the shapes of
+#: the JAX package's tests of the eight-array dispatch
+#: (``tests/test_parallel.py:82``, ``:106``, ``:134``) and one of the
+#: main path's (R, N) buckets
+K1T_CASES = ((64, 16, 252, 4, 11, False), (64, 8, 252, 2, 12, True),
+             (64, 16, 252, 4, 13, False), (256, 1024, 1512, 4, 2028, False))
+
+
+def k1t_case(W: int, N: int, R: int, K: int, seed: int, bounded: bool):
+    """Host-window lanes as ``extend_batch_multi`` lays them out, drawn as
+    the JAX tests draw theirs (at the main path's shape, B windows that
+    hold a noisy copy of A from column W in three lanes of four), with
+    the ladder of slopes R, 1.05R, 0.95R, R; returns the store, meta12,
+    the slopes and a table whose later half of schedules are random
+    walks of 0..2 columns a row from the ladder's row 0 instead."""
+    import torch
+
+    from dentist_tpu_torch.ops.banded import (DIAG_UNBOUNDED, bw_for,
+                                              host_window_meta, ladder)
+
+    rng = np.random.default_rng(seed)
+    BW = bw_for(R, W)
+    a = rng.integers(0, 4, (N, R)).astype(np.uint8)
+    b = rng.integers(0, 4, (N, BW)).astype(np.uint8)
+    if N > 16:
+        for n in range(N):
+            if n % 4 != 3:
+                seg = a[n, : BW - W].copy()
+                noise = rng.random(len(seg)) < 0.12
+                seg[noise] = rng.integers(0, 4, int(noise.sum()))
+                b[n, W : W + len(seg)] = seg
+    if bounded:
+        a_len = b_len = np.full(N, R, np.int32)
+    else:
+        a_len = rng.integers(R // 2, R + 1, N).astype(np.int32)
+        b_len = rng.integers(R // 2, int(1.1 * R), N).astype(np.int32)
+    diag_lo = np.full(N, -DIAG_UNBOUNDED, np.int32)
+    diag_hi = np.full(N, DIAG_UNBOUNDED, np.int32)
+    if bounded:
+        diag_hi[::2] = 40
+    num_k = np.array([R, int(1.05 * R), int(0.95 * R), R][:K], np.int32)
+    lane_k = (np.arange(N) % K).astype(np.int32)
+    offs = ladder(num_k, R, W)
+    walks = offs.copy()
+    for k in range(K // 2, K):
+        steps = rng.choice(3, size=R, p=(0.25, 0.5, 0.25))
+        walks[1:, k] = walks[0, k] + np.cumsum(steps)
+    store = np.concatenate([a.reshape(-1), b.reshape(-1)])
+    meta = host_window_meta(a_len, b_len, lane_k, diag_lo, diag_hi, N, R, BW)
+    return (torch.from_numpy(store).cuda(), torch.from_numpy(meta).cuda(),
+            num_k, offs, walks)
+
+
+def phase_k1t() -> tuple:
+    """Phase 3 for K1t, the table mode no path runs: at each of
+    ``K1T_CASES``, on the ladder table (and there equal to K1 on the same
+    lanes) and on a table with random-walk schedules, against its plain
+    version (tolerance 0); returns its ``kernels`` row."""
+    from dentist_tpu_torch.ops import banded
+
+    k1t = {}
+    for W, N, R, K, seed, bounded in K1T_CASES:
+        store, meta, num_k, offs, walks = k1t_case(W, N, R, K, seed, bounded)
+        work = k1_work(meta, R, W, False, table=offs)
+        for what, table in (("ladder", offs), ("walks", walks)):
+            st = hold(f"K1t extend_table W={W} R={R} N={N} K={K} {what} "
+                      f"diag_bounds={bounded}",
+                      lambda: banded.extend_table(store, meta, table, R=R, W=W),
+                      lambda: banded.extend_table_reference(store, meta, table,
+                                                            R=R, W=W), 3, work)
+            log(f"  {int((st['out'][3] > 0).sum())}/{N} lanes aligned; "
+                f"{st['ms'] / st['bound_ms']:.2f}x the bound")
+            k1t = merge(k1t, st)
+            if what == "ladder":
+                k1 = banded.extend(store, meta, num_k, R=R, W=W)
+                if max_abs_err(st["out"], k1):
+                    fail(f"K1t != K1 on the ladder of num_k at R={R} N={N}")
+                log("  equal to K1 on the same lanes and slopes")
+    return ("K1t extend_table", "dentist_tpu_torch/csrc/extend.cu",
+            "dentist_tpu/ops/banded.py:62", "phase3", "K1t", k1t)
 
 
 def compare(what: str, R: int, N: int, kernel, old, out, st: dict) -> None:
@@ -2343,14 +2470,16 @@ def phase_scripts() -> None:
             fail(f"scripts: the K2p bench failed at T={row['T']} N={row['N']}")
 
 
-def phase_c(ref: dict, tmp: str, phase5) -> None:
+def phase_c(ref: dict, tmp: str, phase5) -> list:
     """Phase C at each of ``PHASE_C_SIZES`` through ``run_pipeline`` on
     the card, in a process of its own (``scripts/phase_c_torch.py``),
     held to the JAX package's run of the same files: outputs, stage
     artifacts and every closed gap by digest, counts, and the main path's
-    kernels launched; then each kernel at the buckets the runs launched
-    that phase 5 (``phase5``, its recorder) did not
-    (:func:`phase_c_holds`)."""
+    kernels launched; then the store-overflow run
+    (:func:`phase_c_overflow`); then each kernel at the buckets the runs
+    launched that phase 5 (``phase5``, its recorder) did not
+    (:func:`phase_c_holds`).  Returns the launch tables of phase 5 and of
+    the three runs."""
     import torch
 
     out = run_script("phase_c_torch", "--dir", tmp)
@@ -2388,36 +2517,96 @@ def phase_c(ref: dict, tmp: str, phase5) -> None:
         missing = [m for m in MAIN_PATH_KERNELS if not run["launches"].get(m)]
         if missing:
             fail(f"{what}: {missing} not launched: {run['launches']}")
+    tables.append(phase_c_overflow(ref, tmp))
     phase_c_holds(tables, phase5)
+    return [vars(phase5)] + tables
+
+
+def phase_c_overflow(ref: dict, tmp: str) -> dict:
+    """Phase 16's third run: phase C at ``OVERFLOW_SIZE`` through
+    ``run_pipeline`` in this process, with a device store of
+    ``OVERFLOW_STORE_MB`` MiB (see the module's docstring), held to the
+    same reference entry as the resident run; returns its recorder's
+    tables."""
+    from dentist_tpu_torch.dryrun import LaunchRecorder
+    from dentist_tpu_torch.ops import banded
+    from dentist_tpu_torch.scenarios import (diff_digests, run_phase_c,
+                                             write_phase_c)
+
+    mb, gaps = OVERFLOW_SIZE
+    what = f"phase C {mb} Mb / {gaps} gaps, {OVERFLOW_STORE_MB} MiB store"
+    want = ref[str(mb)]
+    d = os.path.join(tmp, f"phase_c_{mb}_overflow")
+    sc, asm, reads, datagen = write_phase_c(d, mb, gaps, want["inputs"])
+    rec = LaunchRecorder()
+    run = run_phase_c(sc, asm, reads, d, True, recorder=rec,
+                      store_capacity=OVERFLOW_STORE_MB << 20)
+    banded.reset_device_store()  # the card's store for the phases after
+    got, launches = run["digests"], run["launches"]
+    log(f"{what}: {run['wall_s']:.2f} s wall (datagen {datagen:.1f} s, digests "
+        f"{run['digest_s']:.1f} s); stages {json.dumps(run['stage_seconds'])}")
+    log(f"  store {run['store_mib']:.0f} MiB, {run['store_resets']} resets; "
+        f"K1 {launches.get('K1', 0)}, K1p {launches.get('K1p', 0)}, K5 "
+        f"{launches.get('K5', 0)}; closed {got['closed']}, "
+        f"{got['closed_exactly']} byte-exact; launches {json.dumps(launches)}")
+    differs = diff_digests(want, got)
+    log(f"  differing from JAX: {differs or 'none'}")
+    if differs:
+        fail(f"{what}: differs from the JAX package's run in {differs}")
+    if not (launches.get("K1") and launches.get("K1p") and run["store_resets"] >= 1):
+        fail(f"{what}: K1 {launches.get('K1', 0)}, K1p {launches.get('K1p', 0)} "
+             f"and {run['store_resets']} resets; each must be at least 1")
+    if (got["closed"] < want["closed"]
+            or got["closed_exactly"] < want["closed_exactly"]):
+        fail(f"{what}: {got['closed']} closed, {got['closed_exactly']} "
+             f"byte-exact; JAX {want['closed']} and {want['closed_exactly']}")
+    log("  FASTA, AGP, BED, every stage artifact and every closed gap equal "
+        "to the JAX package's (sha256), with the reads on host windows")
+    return rec.tables()
 
 
 def phase_c_holds(tables: list, phase5) -> None:
     """Phase 3 for phase 16: at every bucket and K5 upload size that
     phase C's runs (their recorders' ``tables()``) launched and phase 5
-    (its recorder) did not, each kernel against its plain version
-    (tolerance 0) as phase 3 holds phase 5's, on the first launch's own
-    inputs for K4 and K4w; K1 without K1p and K2p without K2, the modes
-    phase C launches."""
+    (its recorder) did not (:func:`hold_buckets`)."""
+    hold_buckets(new_buckets(tables, [vars(phase5)]), "phase C's", "phase 5")
+
+
+def new_buckets(tables: list, seen: list) -> dict:
+    """The buckets and K5 upload sizes that the runs of ``tables``
+    (recorders' ``tables()``) launched and none of ``seen`` (the same, or
+    ``vars()`` of a recorder) did, their counts summed, in the same
+    layout."""
     new = {"k1": {}, "k2": {}, "k3": {}, "k4": {}, "k5": []}
-    sizes = {n for n, _ in phase5.k5}
+    had = lambda name, key: any(key in s[name] for s in seen)
+    sizes = {n for s in seen for n, _ in s["k5"]}
     for t in tables:
         for name in ("k1", "k2"):
             for key, row in t[name].items():
-                if key not in getattr(phase5, name):
+                if not had(name, key):
                     have = new[name].get(key, [0] * len(row))
                     new[name][key] = [a + b for a, b in zip(have, row)]
         for key, r in t["k3"].items():
-            if key not in phase5.k3:
+            if not had("k3", key):
                 have = new["k3"].setdefault(key, {})
                 for name, x in r.items():
                     have[name] = have[name] + x if name in have else x
         for key, r in t["k4"].items():
-            if key not in phase5.k4:
+            if not had("k4", key):
                 have = new["k4"].setdefault(key, dict(r, launches=0, live=0))
                 have["launches"] += r["launches"]
                 have["live"] += r["live"]
         new["k5"] += [(n, off) for n, off in t["k5"] if n not in sizes]
-    log("phase C's launches at buckets phase 5 did not launch:")
+    return new
+
+
+def hold_buckets(new: dict, runs: str, before: str) -> None:
+    """Phase 3 again for ``new`` (:func:`new_buckets`): each kernel
+    against its plain version (tolerance 0) at every bucket and K5 upload
+    size in it, as phase 3 holds phase 5's, on the first launch's own
+    inputs for K4 and K4w; K1 without K1p and K2p without K2, the modes
+    the pipeline launches."""
+    log(f"{runs} launches at buckets {before} did not launch:")
     log_buckets(new)
     phase_k1(new["k1"], None, legacy=(), packed=False)
     phase_k2(new["k2"], None, full=False)
@@ -2425,18 +2614,87 @@ def phase_c_holds(tables: list, phase5) -> None:
     phase_k4(new["k4"], None, {})
     if new["k5"]:
         phase_k5(new["k5"], None)
-    log("phase C's buckets: every kernel equal to its plain version")
+    log(f"{runs} buckets: every kernel equal to its plain version")
+
+
+def suite_reference() -> dict:
+    """``scenarios.SUITE_REFERENCE``'s contents."""
+    from dentist_tpu_torch.scenarios import SUITE_REFERENCE
+
+    try:
+        with open(SUITE_REFERENCE) as fh:
+            return json.load(fh)
+    except (OSError, json.JSONDecodeError) as exc:
+        fail(f"suite: cannot read the JAX package's digests: {exc}")
+
+
+def suite_plan(ref: dict) -> list:
+    """The scenarios phase 19 runs, ``scenarios.SUITE``'s keys in order;
+    fails unless the reference (:func:`suite_reference`) holds exactly
+    these, in that order."""
+    from dentist_tpu_torch.scenarios import SUITE
+
+    keys = list(SUITE)
+    if list(ref.get("scenarios", {})) != keys:
+        fail(f"suite: the reference holds {list(ref.get('scenarios', {}))}, "
+             f"not the scenarios {keys}")
+    return keys
+
+
+def phase_suite(ref: dict, seen: list) -> None:
+    """Phase 19: every suite scenario through the port on the card, held
+    to the JAX package's digests, every main-path kernel launched; then
+    each kernel against its plain version at every bucket and K5 upload
+    size the scenarios launched that none of ``seen`` (phase 5's and
+    phase 16's launch tables) did (:func:`hold_buckets`)."""
+    import torch
+
+    from dentist_tpu_torch import scenarios
+    from dentist_tpu_torch.dryrun import LaunchRecorder
+    from dentist_tpu_torch.ops import banded
+
+    t_all = time.perf_counter()
+    keys = suite_plan(ref)
+    mods = scenarios.port_modules()
+    banded.reset_device_store()
+    reset_launch_counts()
+    walls = {}
+    with LaunchRecorder() as rec:
+        for key in keys:
+            t0 = time.perf_counter()
+            got = scenarios.suite_digests(key, scenarios.run_suite(key, mods))
+            torch.cuda.synchronize()
+            walls[key] = round(time.perf_counter() - t0, 3)
+            want = ref["scenarios"][key]["digests"]
+            if got != want:
+                fail(f"suite {key} ({scenarios.SUITE[key]}): digests {got} != "
+                     f"the JAX package's {want}")
+    launches = launch_counts()
+    runs_s = time.perf_counter() - t_all
+    log(f"suite: {len(keys)} scenarios of the JAX package's tests in "
+        f"{runs_s:.2f} s, every digest equal to its run's; seconds "
+        f"{json.dumps(walls)}")
+    log(f"  launches {json.dumps({k: n for k, n in launches.items() if n})}")
+    missing = [m for m in MAIN_PATH_KERNELS if not launches[m]]
+    if missing:
+        fail(f"suite: {missing} not launched: {launches}")
+    hold_buckets(new_buckets([vars(rec)], seen), "the suite's",
+                 "phases 5 and 16")
+    log(f"suite: {time.perf_counter() - t_all:.1f} s in all, the holds "
+        f"{time.perf_counter() - t_all - runs_s:.1f} s")
 
 
 def phase_bench() -> None:
     """Phase 18: ``bench_torch.py --small`` as a process on the card (see
     the module's docstring)."""
-    line = run_script("bench_torch", "--small", where="")
+    line = run_script("bench_torch", "--small", "--trials", str(BENCH_TRIALS),
+                      where="")
     if line.get("gates_passed") != BENCH_GATES:
         fail(f"bench: gates passed {line.get('gates_passed')}, not {BENCH_GATES}")
     close, trials = line["pipeline_trial_seconds"], line["pipeline_trials"]
-    if len(close) != 3 or len(trials) != 3:
-        fail(f"bench: {len(close)} phase C trials timed, {len(trials)} recorded; 3 wanted")
+    if len(close) != BENCH_TRIALS or len(trials) != BENCH_TRIALS:
+        fail(f"bench: {len(close)} phase C trials timed, {len(trials)} recorded; "
+             f"{BENCH_TRIALS} wanted")
     for i, t in enumerate(trials):
         missing = [m for m in MAIN_PATH_KERNELS if not t["launches"].get(m)]
         if missing:
@@ -2633,15 +2891,19 @@ def main() -> None:
         phase_two_processes(tmp, staged_walls)
     # 15. the profiling and bench scripts as processes on the card
     phase_scripts()
-    # 16. phase C at 3 and 28 Mb against the JAX package's digests; 3 at
-    # the buckets it launched that phase 5 did not
+    # 16. phase C at 3 and 28 Mb against the JAX package's digests, and at
+    # 3 Mb with the reads overflowing the store; 3 at the buckets they
+    # launched that phase 5 did not
     with tempfile.TemporaryDirectory(prefix="chip_smoke_c_") as tmp:
-        phase_c(phase_c_reference(), tmp, rec)
+        seen = phase_c(phase_c_reference(), tmp, rec)
     # 17. the installed port: a wheel in a prefix outside the repo, the
     # kernels prebuilt by the packaging's build command, its smoke test
     phase_installed(smi)
     # 18. the port's bench, phase C at 3 Mb
     phase_bench()
+    # 19. the JAX package's suite scenarios by digest; 3 at the buckets they
+    # launched that phases 5 and 16 did not
+    phase_suite(suite_reference(), seen)
 
     # each mode's launches in the run that drives it: phase 5 (the main
     # path), phase 7 for K1p, phase 9 for the dense K4 and K4w, phase 3

@@ -13,7 +13,17 @@
 // each lane's host-assembled A window (R chars) and B window (BW chars)
 // arrive as one 2-bit packed row, decoded at staging through pack2.cuh;
 // the five per-lane ints are meta5 rows b_len, lane_k, a_len, diag_lo,
-// diag_hi.  Both modes run the same DP loop.
+// diag_hi.
+//
+// K1t, the table mode (kTable), replaces _extend_scan_v3 as
+// extend_batch_multi_async dispatches it (banded.py:635): the store
+// mode's gather, but lane n's band offsets are read from column
+// lane_k[n] of an (R + 1, K) int32 table on the device, any schedule
+// that moves 0..2 columns a row and shares row 0 with the others (the
+// wrapper refuses the rest), in place of the num_k formula.  Each chunk
+// of 32 rows stages the column's 35 entries it reads (rows r0 - 1 ..
+// r0 + 33) into shared memory with the chunk's other loads.
+// All three modes run the same DP loop.
 //
 // What bounds it on the card: the integer instruction rate.  Each lane is a
 // chain of up to R = 32256 dependent rows of a W = 256-cell band, about a
@@ -200,12 +210,12 @@ __device__ __forceinline__ int row_step(int (&u)[VT],
   return kprev;
 }
 
-template <bool kPacked, int VT>
+template <bool kPacked, bool kTable, int VT>
 __global__ void __launch_bounds__(32 * kLanes)
     extend_kernel(const uint8_t* __restrict__ src, long long src_len,
                   const int* __restrict__ meta,   // (12 | 5, N)
-                  const int* __restrict__ num_k,  // (K,)
-                  int N, int R, int W, int BW,
+                  const int* __restrict__ num_k,  // (K,), kTable: (R + 1, K)
+                  int N, int R, int W, int BW, int K,
                   int* __restrict__ out) {  // (4 + R/126, N)
   constexpr int NB = VT + 3;          // staged B columns per thread
   constexpr int NOUT = (VT + 3) / 4;  // words holding a thread's VT chars
@@ -214,6 +224,8 @@ __global__ void __launch_bounds__(32 * kLanes)
   // per row of the chunk: off, s | full << 2 | A char << 8, plo, phi
   __shared__ int4 sR[kLanes][kChunk + 2];
   __shared__ int sK[kLanes][32 * KS];  // [thread][row of the chunk]
+  // kTable: the lane's offsets of rows r0 - 1 .. r0 + 33
+  __shared__ int sO[kLanes][kTable ? kChunk + 3 : 1];
   // what staging reads once a chunk: A char ai at a_base + a_step * ai,
   // B column c at b_base + b_step * c (store mode; packed: the lane's
   // row, steps 1), c inside [col_lo, col_hi)
@@ -235,7 +247,8 @@ __global__ void __launch_bounds__(32 * kLanes)
   // row of [A window | B window] codes, the whole B window valid
   long long a_start = 0, b_start = 0;
   int a_rev = 0, b_rev = 0, b_flip = 0, c_lo = 0, c_hi = BW;
-  int a_len, b_len, num, diag_lo, diag_hi;
+  int a_len, b_len, num = 0, diag_lo, diag_hi;
+  const int* col = nullptr;  // kTable: the lane's column of the table
   if constexpr (kPacked) {
     b_len = meta[0 * N + n];
     num = num_k[meta[1 * N + n]];
@@ -252,7 +265,10 @@ __global__ void __launch_bounds__(32 * kLanes)
     c_lo = meta[6 * N + n];
     c_hi = meta[7 * N + n];
     b_len = meta[8 * N + n];
-    num = num_k[meta[9 * N + n]];
+    if constexpr (kTable)
+      col = num_k + meta[9 * N + n];
+    else
+      num = num_k[meta[9 * N + n]];
     diag_lo = meta[10 * N + n];
     diag_hi = meta[11 * N + n];
   }
@@ -279,23 +295,29 @@ __global__ void __launch_bounds__(32 * kLanes)
   diag_hi = max(-kWide, min(diag_hi, kWide));
   const int half = W / 2;
   const int p0 = t * VT;
+  // the table's row r (rows past R repeat row R: the band stops there)
+  auto tab_at = [&](int r) { return col[(long long)min(r, R) * K]; };
 
-  // row 0: D = j = p - W/2 where valid, so u = -W/2
+  // row 0: D = j = p + off0 where valid, so u = off0 (off0 = -W/2 but in
+  // a table, whose schedules share their row 0)
+  const int off0 = kTable ? tab_at(0) : -half;
   int u[VT];
 #pragma unroll
   for (int i = 0; i < VT; ++i) {
-    const int j0 = p0 + i - half;
+    const int j0 = p0 + i + off0;
     const bool ok0 = p0 + i < W && j0 >= 0 && j0 <= b_len && j0 >= diag_lo &&
                      j0 <= diag_hi;
-    u[i] = ok0 ? -half : kInf;
+    u[i] = ok0 ? off0 : kInf;
   }
   int jm = 0, dm = 0, best_s = -kInf, best_r = 0, best_j = 0, best_d = 0;
 
   // rows past a_len cannot change the result: stop there and repeat the
   // final trace sample in the remaining trace rows
   const int r_end = min(R, max(a_len, 0));
-  // the schedule's offset of row r, floor(r * num / R) - W/2 (r <= R + 32)
+  // the schedule's offset of row r, floor(r * num / R) - W/2 (r <= R + 32);
+  // kTable: the table's
   auto off_at = [&](int r) {
+    if constexpr (kTable) return tab_at(r);
     if (R <= 46000)  // r * num < 2^32
       return (int)((unsigned)r * (unsigned)num / (unsigned)R) - half;
     return (int)(((long long)r * num) / R) - half;
@@ -303,8 +325,12 @@ __global__ void __launch_bounds__(32 * kLanes)
 
   // staging: the chunk of rows r0 .. r0+31 reads A chars r0-1 .. r0+30
   // and B columns cb .. cb + 32*NB - 1, cb = off(r0) - 1 + W
-  int rawA = 0, rawB[NB];
+  int rawA = 0, rawB[NB], rawO = 0, rawO2 = 0;
   auto fetch = [&](int r0, int cb) {
+    if constexpr (kTable) {  // the offsets of rows r0 - 1 .. r0 + 33
+      rawO = tab_at(r0 - 1 + t);
+      if (t < 3) rawO2 = tab_at(r0 + kChunk - 1 + t);
+    }
     const int ai = r0 - 1 + t;
     rawA = 0;
     if (ai < r_end) {
@@ -343,16 +369,25 @@ __global__ void __launch_bounds__(32 * kLanes)
     const int r = r0 + t;
     int a = rawA;
     if constexpr (kPacked) a = code2_of(a, r - 1);
-    const int off = off_at(r);
+    int* const so = sO[w];  // so[i]: the offset of row r0 - 1 + i
+    if constexpr (kTable) {
+      so[t] = rawO;
+      if (t < 3) so[kChunk + t] = rawO2;
+      __syncwarp();
+    }
+    const int off = kTable ? so[t + 1] : off_at(r);
+    const int prev = kTable ? so[t] : off_at(r - 1);
     // valid cells: 0 <= j <= b_len, diag_lo <= j - r <= diag_hi
     const int plo = max(-off, diag_lo + r - off);
     const int phi = min(min(b_len - off, diag_hi + r - off), W - 1);
     const bool full = W == 32 * VT && off >= 1 && plo <= 0 && phi >= W - 1;
-    rows[t] = make_int4(off, (off - off_at(r - 1)) | (full << 2) | (a << 8),
-                        plo, phi);
+    rows[t] = make_int4(off, (off - prev) | (full << 2) | (a << 8), plo, phi);
     // rows 32 and 33 hold only an offset: the loop reads their characters
     // ahead, inside the staged columns, and reloads them after the chunk
-    if (t < 2) rows[kChunk + t] = make_int4(off_at(r + kChunk), 0, 0, 0);
+    if (t < 2) {
+      const int ahead = kTable ? so[kChunk + 1 + t] : off_at(r + kChunk);
+      rows[kChunk + t] = make_int4(ahead, 0, 0, 0);
+    }
   };
   // the thread's VT B characters of a row whose offset is off
   auto chars = [&](int off, int cb, uint32_t (&bw)[NOUT]) {
@@ -419,7 +454,9 @@ __global__ void __launch_bounds__(32 * kLanes)
   }
   while (r0 <= r_end) {
     const int r1 = min(r0 + kChunk, r_end + 1);  // this chunk: [r0, r1)
-    const int cb_next = r1 <= r_end ? off_at(r1) - 1 + W : 0;
+    // kTable: row r1 = r0 + 32's offset is staged in the row table
+    const int cb_next =
+        r1 <= r_end ? (kTable ? rows[kChunk].x : off_at(r1)) - 1 + W : 0;
     if (r1 <= r_end) fetch(r1, cb_next);
 
     for (int r = r0; r < r1; ++r) {
@@ -484,10 +521,10 @@ __global__ void __launch_bounds__(32 * kLanes)
 }
 
 // VT = 8 for W <= 256 (the aligner's W), 32 for the rest (W <= 1024)
-template <bool kPacked>
+template <bool kPacked, bool kTable = false>
 int launch(const void* src, long long src_len, const void* meta,
            const void* num_k, void* out, int N, int R, int W, int BW,
-           void* stream) {
+           void* stream, int K = 0) {
   const dim3 grid((N + kLanes - 1) / kLanes), block(32 * kLanes);
   const cudaStream_t st = (cudaStream_t)stream;
   const auto* s = (const uint8_t*)src;
@@ -495,11 +532,11 @@ int launch(const void* src, long long src_len, const void* meta,
   const auto* k = (const int*)num_k;
   auto* o = (int*)out;
   if (W <= 256)
-    extend_kernel<kPacked, 8><<<grid, block, 0, st>>>(s, src_len, m, k, N, R,
-                                                      W, BW, o);
+    extend_kernel<kPacked, kTable, 8><<<grid, block, 0, st>>>(
+        s, src_len, m, k, N, R, W, BW, K, o);
   else
-    extend_kernel<kPacked, 32><<<grid, block, 0, st>>>(s, src_len, m, k, N,
-                                                       R, W, BW, o);
+    extend_kernel<kPacked, kTable, 32><<<grid, block, 0, st>>>(
+        s, src_len, m, k, N, R, W, BW, K, o);
   return (int)cudaGetLastError();
 }
 
@@ -510,6 +547,15 @@ extern "C" int dentist_extend(const void* store, const void* meta,
                               int N, int R, int W, int BW, void* stream) {
   return launch<false>(store, store_len, meta, num_k, out, N, R, W, BW,
                        stream);
+}
+
+// K1t: meta12 (12, N) into the store as K1's, offs (R + 1, K) int32
+extern "C" int dentist_extend_table(const void* store, const void* meta,
+                                    const void* offs, void* out, int store_len,
+                                    int N, int R, int W, int BW, int K,
+                                    void* stream) {
+  return launch<false, true>(store, store_len, meta, offs, out, N, R, W, BW,
+                             stream, K);
 }
 
 // K1p: chars (N, (R + BW) / 4) packed rows, meta5 (5, N)

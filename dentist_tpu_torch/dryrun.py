@@ -51,12 +51,13 @@ def free_port() -> int:
 
 
 def launch_counts() -> dict:
-    """Launches of each kernel mode in this process: K1, K1p, K2, K2p,
-    K2r, K3, K3p, K3f, K3b, K4 (sparse) and K4dense, K4w (sparse) and
-    K4wdense, K5."""
+    """Launches of each kernel mode in this process: K1, K1p, K1t, K2,
+    K2p, K2r, K3, K3p, K3f, K3b, K4 (sparse) and K4dense, K4w (sparse)
+    and K4wdense, K5."""
     from .ops import banded, nw_dist, nw_round, round_pack
 
     return {"K1": banded.launches, "K1p": banded.packed_launches,
+            "K1t": banded.table_launches,
             "K2": nw_round.launches, "K2p": nw_round.packed_launches,
             "K2r": nw_round.resident_launches,
             "K3": nw_dist.launches, "K3p": nw_dist.packed_launches,
@@ -73,7 +74,7 @@ def reset_launch_counts() -> None:
     from .ops import banded, nw_dist, nw_round, round_pack
 
     for mod, names in ((banded, ("launches", "packed_launches",
-                                 "store_write_launches")),
+                                 "table_launches", "store_write_launches")),
                        (nw_round, ("launches", "packed_launches",
                                    "resident_launches")),
                        (nw_dist, ("launches", "packed_launches",

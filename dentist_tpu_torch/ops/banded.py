@@ -1,7 +1,8 @@
 """K1, the banded extension DP, and the device sequence store.
 
 Port of ``dentist_tpu/ops/banded.py``.  The kernel (``csrc/extend.cu``)
-has two modes, one per dispatch mode of the aligner:
+has two modes, one per dispatch mode of the aligner, and a third that
+takes the band schedules as a table:
 
 - :func:`extend` (K1): lanes whose windows lie in the resident
   :class:`DeviceStore`, each described by twelve coordinates
@@ -11,13 +12,20 @@ has two modes, one per dispatch mode of the aligner:
   one 2-bit packed row per lane (:func:`extend_batch_packed`, which also
   splits the lanes over the ranks of a data-parallel group and gathers
   their results).
+- :func:`extend_table` (K1t): :func:`extend`'s lanes with each lane's
+  band offsets read from an (R + 1, K) table in place of the slopes
+  ``num_k`` (:func:`extend_batch_multi`, the port of the JAX package's
+  eight-array dispatch ``extend_batch_multi_async``, which nothing on
+  the main path calls).
 
 :class:`DeviceStore` uploads its sequences 2-bit packed, one launch of
 K5 (:func:`store_write`, ``csrc/store_write.cu``) an upload, which
 unpacks them into the store on the device.
 
 :func:`extend_reference` is the plain PyTorch version of the DP: a
-Python loop over rows, vectorized over lanes and band cells;
+Python loop over rows, vectorized over lanes and band cells, on the
+offsets :func:`ladder` expands from ``num_k``;
+:func:`extend_table_reference` runs the same loop on a table, and
 :func:`extend_packed_reference` unpacks and calls it.  The wrappers
 take them for CPU tensors only; a CUDA tensor launches the kernel or
 raises.
@@ -38,7 +46,8 @@ from ..parallel.dp import gather_lanes, local_lanes
 from .pack2 import pack2bit, unpack2bit
 
 __all__ = ["extend", "extend_reference", "extend_packed",
-           "extend_packed_reference", "extend_batch_packed",
+           "extend_packed_reference", "extend_batch_packed", "extend_table",
+           "extend_table_reference", "extend_batch_multi", "ladder",
            "unpack_extension", "bw_for", "DeviceStore", "device_store",
            "reset_device_store", "host_window_meta", "DIFF_PENALTY", "INF",
            "DIAG_UNBOUNDED", "RESIDENT_PAD", "store_write",
@@ -49,6 +58,10 @@ INF = 1 << 28
 #: diag_lo/diag_hi sentinel: larger than any band coordinate
 DIAG_UNBOUNDED = 1 << 20
 _NEG = -(1 << 30)
+#: above the edit distance of any cell the DP reaches (at most its rows
+#: and columns, 32256 + 46000), and below (2^31 - 2^20) / 3072: the plain
+#: version's row keys stay inside int32 with it
+_D_KEY = 400_000
 #: rows per trace sample (``models.alignments.TRACE_SPACING``)
 _TRACE = 126
 #: the TPU kernel's row-chunk length: window buckets stay multiples of it
@@ -58,6 +71,8 @@ _CHUNK = 42
 launches = 0
 #: launches of the K1 kernel on 2-bit packed windows (K1p)
 packed_launches = 0
+#: launches of the K1 kernel with a table of band offsets (K1t)
+table_launches = 0
 #: launches of K5, the 2-bit store upload
 store_write_launches = 0
 
@@ -268,11 +283,16 @@ def host_window_meta(a_len, b_len, lane_k, diag_lo, diag_hi, N: int, R: int,
     return meta
 
 
-def _check_shape(nk, R, W):
-    """The row and schedule checks of both modes; returns BW."""
+def _check_rows(R, W):
+    """The row and band-width checks of every mode; returns BW."""
     if R % _CHUNK or R % _TRACE or not 1 <= W <= 1024:
         raise KernelError(f"unsupported shape R={R}, W={W}")
-    BW = bw_for(R, W)
+    return bw_for(R, W)
+
+
+def _check_shape(nk, R, W):
+    """The row and schedule checks of K1 and K1p; returns BW."""
+    BW = _check_rows(R, W)
     # every band schedule must stay inside the B window (the TPU kernel's
     # window refills would clamp otherwise) and move 0..2 columns per row
     if nk.ndim != 1 or len(nk) == 0:
@@ -283,8 +303,29 @@ def _check_shape(nk, R, W):
     return BW
 
 
-def _check_args(store, meta12, nk, R, W):
-    BW = _check_shape(nk, R, W)
+def _check_table(offs, R, W):
+    """K1t's row and schedule checks; returns BW.  The kernel and JAX's
+    ``_extend_scan_v3`` agree on a table whose schedules share row 0
+    (JAX starts every lane from ``offs_k[0, 0]``), move 0..2 columns a
+    row (the band's shift; JAX selects 2 for any other) and keep every
+    row's B window inside [0, BW) (JAX clamps its window slices there):
+    the num_k ladders are such tables, and others are refused."""
+    BW = _check_rows(R, W)
+    if offs.ndim != 2 or offs.shape[0] != R + 1 or offs.shape[1] == 0:
+        raise KernelError(f"offs_k must be an (R + 1, K) = ({R + 1}, K) table")
+    if (offs[0] != offs[0, 0]).any():
+        raise KernelError("offs_k: the schedules must share row 0")
+    steps = np.diff(offs, axis=0)
+    if int(steps.min()) < 0 or int(steps.max()) > 2:
+        raise KernelError("offs_k: a schedule moves 0..2 columns a row")
+    if (int(offs[1].min()) - 1 + W < 0
+            or int(offs[R].max()) - 1 + 2 * W + 2 * _CHUNK > BW):
+        raise KernelError("offs_k outside the B window")
+    return BW
+
+
+def _check_args(store, meta12, R, BW):
+    """The store-mode checks of K1 and K1t."""
     if store.dtype != torch.uint8 or store.dim() != 1:
         raise KernelError("store must be a 1-D uint8 tensor")
     if meta12.dtype != torch.int32 or meta12.dim() != 2 or meta12.shape[0] != 12:
@@ -295,7 +336,13 @@ def _check_args(store, meta12, nk, R, W):
         raise KernelError("extend takes contiguous tensors")
     if store.numel() < max(R, BW) or store.numel() >= 1 << 31:
         raise KernelError("store size out of range")
-    return BW
+
+
+def ladder(num_k, R: int, W: int) -> np.ndarray:
+    """The (R + 1, K) band offsets of the slopes ``num_k``, ``offs[r, k] =
+    (r·num_k[k])//R − W/2``, as the aligner's schedules expand."""
+    rows = np.arange(R + 1, dtype=np.int64)[:, None]
+    return (rows * _host_ints(num_k)[None, :]) // R - W // 2
 
 
 def _host_ints(x) -> np.ndarray:
@@ -317,7 +364,8 @@ def extend(store: torch.Tensor, meta12: torch.Tensor, num_k,
     """
     global launches
     nk = _host_ints(num_k)
-    BW = _check_args(store, meta12, nk, R, W)
+    BW = _check_shape(nk, R, W)
+    _check_args(store, meta12, R, BW)
     if store.device.type == "cpu":
         return extend_reference(store, meta12, nk, R, W)
     if store.device.type != "cuda":
@@ -433,6 +481,79 @@ def extend_batch_packed(a_win: np.ndarray, b_win: np.ndarray, a_len, b_len,
     return gather_lanes(out, group, 1)
 
 
+def extend_table(store: torch.Tensor, meta12: torch.Tensor, offs_k,
+                 R: int, W: int = 256) -> torch.Tensor:
+    """K1t: :func:`extend` with lane n's band offsets read from column
+    ``lane_k[n]`` (``meta12`` row 9) of ``offs_k``, an (R + 1, K) table of
+    host ints, in place of the slopes' formula.  The schedules must share
+    row 0, move 0..2 columns a row and keep the B window inside [0, BW)
+    (:func:`_check_table`; any num_k ladder does).  Returns the same
+    (4 + R/126, N) block."""
+    global table_launches
+    offs = _host_ints(offs_k)
+    BW = _check_table(offs, R, W)
+    _check_args(store, meta12, R, BW)
+    if store.device.type == "cpu":
+        return extend_table_reference(store, meta12, offs, R, W)
+    if store.device.type != "cuda":
+        raise KernelError(f"extend_table: no kernel for device {store.device}")
+    N, K = meta12.shape[1], offs.shape[1]
+    out = torch.empty((4 + R // _TRACE, N), dtype=torch.int32,
+                      device=store.device)
+    if N == 0:
+        return out
+    tab = torch.from_numpy(offs.astype(np.int32)).to(store.device)
+    fn = _build.kernel_fn("dentist_extend_table", 4, 6)
+    with torch.cuda.device(store.device):
+        stream = torch.cuda.current_stream(store.device).cuda_stream
+        status = fn(store.data_ptr(), meta12.data_ptr(), tab.data_ptr(),
+                    out.data_ptr(), store.numel(), N, R, W, BW, K, stream)
+    _build.check("dentist_extend_table", status)
+    with _build.launch_lock:
+        table_launches += 1
+    return out
+
+
+def extend_batch_multi(a_win: np.ndarray, b_win: np.ndarray, a_len, b_len,
+                       offs_k, lane_k, W: int = 256, group=None, diag_lo=None,
+                       diag_hi=None) -> torch.Tensor:
+    """The eight-array dispatch (port of ``extend_batch_multi_async``):
+    the (N, R) A and (N, ``bw_for(R, W)``) B windows of uint8 codes, each
+    lane's lengths and optional diagonal bounds, and its schedule
+    ``lane_k`` in ``offs_k``, an (R + 1, K) table of band offsets
+    (:func:`extend_table`), laid out as one host-window store and run by
+    K1t on the chosen device.  With a data-parallel ``group`` each rank
+    runs its contiguous block of lanes (N must be a multiple of the group
+    size) and the blocks are gathered along the lane axis (port of
+    ``sharded_extend_v3``), so every rank returns the whole (4 + R/126, N)
+    block, equal to the single-device result; read it with
+    :func:`unpack_extension`."""
+    N, R = a_win.shape
+    if diag_lo is None:
+        diag_lo = np.full(N, -DIAG_UNBOUNDED, dtype=np.int32)
+    if diag_hi is None:
+        diag_hi = np.full(N, DIAG_UNBOUNDED, dtype=np.int32)
+    if b_win.shape != (N, bw_for(R, W)):
+        raise KernelError(f"b_win must be (N, bw_for(R, W)) = ({N}, "
+                          f"{bw_for(R, W)})")
+    offs = _host_ints(offs_k)
+    lane_k = np.asarray(lane_k, dtype=np.int32)
+    if offs.ndim != 2 or ((lane_k < 0) | (lane_k >= offs.shape[-1])).any():
+        raise KernelError("lane_k must pick a column of offs_k")
+    lanes = [np.asarray(x, dtype=np.int32)
+             for x in (a_len, b_len, lane_k, diag_lo, diag_hi)]
+    a_win, b_win, *lanes = (local_lanes(x, group, 0)
+                            for x in (a_win, b_win, *lanes))
+    n, BW = len(a_win), b_win.shape[1]
+    scratch = np.concatenate([np.asarray(a_win, np.uint8).reshape(-1),
+                              np.asarray(b_win, np.uint8).reshape(-1)])
+    meta = host_window_meta(*lanes, n, R, BW)
+    dev = get_device()
+    out = extend_table(torch.from_numpy(scratch).to(dev),
+                       torch.from_numpy(meta).to(dev), offs, R=R, W=W)
+    return gather_lanes(out, group, 1)
+
+
 def _windows(store, start, size, rev):
     """(N, size) windows of ``store`` at clamped ``start``, reversed per
     lane where ``rev``."""
@@ -446,91 +567,132 @@ def _windows(store, start, size, rev):
 def extend_reference(store: torch.Tensor, meta12: torch.Tensor, num_k,
                      R: int, W: int = 256) -> torch.Tensor:
     """Plain PyTorch version of :func:`extend` (same arguments, same
-    result, bit for bit).
+    result, bit for bit)."""
+    return extend_table_reference(store, meta12, ladder(num_k, R, W), R, W)
+
+
+def extend_table_reference(store: torch.Tensor, meta12: torch.Tensor, offs_k,
+                           R: int, W: int = 256) -> torch.Tensor:
+    """Plain PyTorch version of :func:`extend_table` (and, on the
+    :func:`ladder` of ``num_k``, of :func:`extend`).
 
     Rows past a lane's ``a_len`` cannot change its result, so the row
     loop stops at the longest live lane and the remaining trace samples
     repeat the final ones; lanes with no A row output the empty result
     without running."""
     dev = store.device
-    i64 = torch.int64
-    m = meta12.to(i64)
+    m = meta12.to(torch.int64)
     N = m.shape[1]
-    out = torch.zeros((4 + R // _TRACE, N), dtype=i64, device=dev)
+    out = torch.zeros((4 + R // _TRACE, N), dtype=torch.int32, device=dev)
     out[3] = -INF
     live = torch.nonzero(m[2] > 0).flatten()
     if len(live):
         R_eff = min(R, int(m[2, live].max()))
-        out[:, live] = _extend_lanes(store, m[:, live], _host_ints(num_k), R,
+        out[:, live] = _extend_lanes(store, m[:, live], _host_ints(offs_k), R,
                                      R_eff, W)
-    return out.to(torch.int32)
+    return out
 
 
-def _extend_lanes(store, m, num_k, R: int, R_eff: int, W: int) -> torch.Tensor:
+def _extend_lanes(store, m, offs, R: int, R_eff: int, W: int) -> torch.Tensor:
+    """The DP's rows for the lanes of ``m``, in int32 as JAX computes
+    them (every value a valid cell holds fits).  Each row keeps only its
+    best cell's packed key; the running maxima jm and dm, the best row
+    and the trace samples are taken from those keys after the last row,
+    as the row-by-row updates would leave them.  A lane whose rows have
+    all run (``a_len``) leaves the loop at the next trace sample."""
     dev = store.device
     BW = bw_for(R, W)
     (a_start, a_rev, a_len, b_start, b_rev, b_flip, c_lo, c_hi, b_len,
      lane_k, diag_lo, diag_hi) = m
     N = m.shape[1]
-    i64 = torch.int64
-    a_win = _windows(store, a_start, R, a_rev).to(i64)
+    i32, i64 = torch.int32, torch.int64
+    a_win = _windows(store, a_start, R, a_rev)
     a_win = torch.where(torch.arange(R, device=dev)[None, :] < a_len[:, None],
                         a_win, 0)
     b_rows = _windows(store, b_start, BW, b_rev)
     b_rows = torch.where(b_flip[:, None] == 1, 3 - b_rows, b_rows)  # u8 wrap
     c = torch.arange(BW, device=dev)[None, :]
-    b_win = torch.where((c >= c_lo[:, None]) & (c < c_hi[:, None]),
-                        b_rows, 0).to(i64)
+    b_win = torch.where((c >= c_lo[:, None]) & (c < c_hi[:, None]), b_rows, 0)
 
-    p = torch.arange(W, device=dev, dtype=i64)[None, :]
-    num = torch.as_tensor(num_k, device=dev)[lane_k]  # (N,)
-    inf = torch.full((N, 1), INF, dtype=i64, device=dev)
-    off_prev = torch.full((N,), -(W // 2), dtype=i64, device=dev)
-    j0 = off_prev[:, None] + p
+    # per row and lane, before the loop: the offset, the band's shift,
+    # the first cell with j >= 1, the valid cells [lo, hi] (0 <= j <=
+    # b_len, diag_lo <= j - r <= diag_hi, clamped where no p can reach)
+    # and the B column of cell 0
+    off = torch.as_tensor(offs, device=dev)[: R_eff + 1, lane_k]  # (R_eff+1, N)
+    r_col = torch.arange(R_eff + 1, device=dev)[:, None]
+    wide = 1 << 30
+    lo = torch.maximum(-off, diag_lo + r_col - off).clamp(-wide, wide).to(i32)
+    hi = torch.minimum(b_len - off, diag_hi + r_col - off).clamp(-wide, wide).to(i32)
+    shift = torch.diff(off, dim=0, prepend=off[:1])
+    j1 = (1 - off).clamp(-wide, wide).to(i32)
+    b_col = off + (W - 1)
+
+    p = torch.arange(W, device=dev, dtype=i32)[None, :]
+    p1 = torch.arange(W + 1, device=dev)[None, :]
+    p64 = p1[:, :W]
+    # the packed row key ((p - 6D) << 9) + (W-1-p), as 511p + (W-1) - 3072D
+    key_p = 511 * p + (W - 1)
+    j0 = off[0][:, None] + p64
     ok0 = ((j0 >= 0) & (j0 <= b_len[:, None]) & (j0 >= diag_lo[:, None])
            & (j0 <= diag_hi[:, None]))
-    D = torch.where(ok0, j0, INF)
-    zero = torch.zeros(N, dtype=i64, device=dev)
-    jm, dm, best_r, best_j, best_d = zero, zero, zero, zero, zero
-    best_s = torch.full((N,), -INF, dtype=i64, device=dev)
-    out = torch.zeros((4 + R // _TRACE, N), dtype=i64, device=dev)
+    D = torch.where(ok0, j0.to(i32), INF)
+    inf = torch.full((N, 1), INF, dtype=i32, device=dev)
+    keys = torch.full((R_eff, N), _NEG, dtype=i32, device=dev)
+    lanes = torch.arange(N, device=dev)  # each state row's lane
+    left = a_len  # the lanes' row counts, as the state rows hold them
     for r in range(1, R_eff + 1):
-        off = (r * num) // R - W // 2
-        s = (off - off_prev)[:, None]
-        off_prev = off
         padded = torch.cat([inf, D, inf, inf], dim=1)  # index q+1 ↔ D[q]
-        E = padded.gather(1, p + s + 1)
-        E1 = padded.gather(1, p + s)
-        b_ch = b_win.gather(1, off[:, None] + p - 1 + W)
-        sub = (a_win[:, r - 1 : r] != b_ch).to(i64)
-        j = off[:, None] + p
-        diag = torch.where(j >= 1, E1 + sub, INF)
-        tmp = torch.minimum(diag, E + 1)
-        valid = ((j >= 0) & (j <= b_len[:, None]) & (j - r >= diag_lo[:, None])
-                 & (j - r <= diag_hi[:, None]))
-        tmp = torch.where(valid, tmp, INF)
-        closed = torch.cummin(tmp - p, dim=1).values
-        D = torch.minimum(tmp, closed + p)
-        key = torch.where(valid & (D < INF) & (r <= a_len)[:, None],
-                          (p - DIFF_PENALTY * D) * 512 + (W - 1 - p), _NEG)
-        row_key = key.max(dim=1).values
-        row_m = row_key >> 9
-        row_p = (W - 1) - (row_key & (2 * W - 1))
-        ok = row_key != _NEG
-        row_s = torch.where(ok, r + off + row_m, -INF)
-        jm = torch.where(ok, torch.maximum(jm, off + row_p), jm)
-        dm = torch.where(ok, torch.maximum(dm, (row_p - row_m) // DIFF_PENALTY),
-                         dm)
-        better = row_s > best_s
-        best_s = torch.where(better, row_s, best_s)
-        best_r = torch.where(better, r, best_r)
-        best_j = torch.where(better, jm, best_j)
-        best_d = torch.where(better, dm, best_d)
-        D = torch.where(valid, torch.clamp(D, max=INF), INF)
-        if r % _TRACE == 0:
-            out[4 + r // _TRACE - 1] = (jm << 15) | torch.clamp(dm, max=(1 << 15) - 1)
-    out[4 + R_eff // _TRACE :] = (jm << 15) | torch.clamp(dm, max=(1 << 15) - 1)
-    out[0], out[1], out[2], out[3] = best_r, best_j, best_d, best_s
+        e = padded.gather(1, p1 + shift[r][:, None])  # e[q] = padded[q + s]
+        b_ch = b_win.gather(1, b_col[r][:, None] + p64)
+        diag = e[:, :W] + (a_win[:, r - 1 : r] != b_ch)
+        diag = torch.where(p >= j1[r][:, None], diag, INF)
+        # cells before the valid ones are INF; those after them feed no
+        # valid cell through the closure min_{q<=p} tmp[q] + (p - q),
+        # which is never above tmp itself, and are set INF after it
+        tmp = torch.where(p >= lo[r][:, None], torch.minimum(diag, e[:, 1:] + 1),
+                          INF)
+        closed = torch.cummin(tmp - p, dim=1).values + p
+        D = torch.where(p <= hi[r][:, None], torch.clamp(closed, max=INF), INF)
+        # a valid cell's D is below _D_KEY: its key is above _NEG, an
+        # unreachable cell's (D = INF, taken as _D_KEY) below it
+        key = key_p - 3072 * torch.clamp(D, max=_D_KEY)
+        keys[r - 1, lanes] = key.max(dim=1).values.clamp(min=_NEG)
+        if r % _TRACE == 0 and (left <= r).any():  # lanes whose rows have all run
+            keep = left > r
+            lanes, left, D, a_win, b_win, inf = (
+                x[keep] for x in (lanes, left, D, a_win, b_win, inf))
+            lo, hi, shift, j1, b_col = (x[:, keep] for x in (lo, hi, shift, j1,
+                                                             b_col))
+            if not len(lanes):
+                break
+
+    # the row winners, as the row-by-row updates take them: rows past a
+    # lane's a_len have none; jm and dm are running maxima from 0; the
+    # best row is the first of the highest score
+    rows = r_col[1:].to(i32)
+    keys = torch.where(rows <= a_len[None, :], keys, _NEG)
+    ok = keys != _NEG
+    row_m = keys >> 9
+    row_p = (W - 1) - (keys & (2 * W - 1))
+    off = off[1:].to(i32)
+    low = torch.iinfo(i32).min
+    jm = torch.cummax(torch.where(ok, off + row_p, low), dim=0).values.clamp(min=0)
+    dm = torch.cummax(torch.where(ok, (row_p - row_m) // DIFF_PENALTY, low),
+                      dim=0).values.clamp(min=0)
+    row_s = torch.where(ok, rows + off + row_m, -INF)
+    best_s = row_s.max(dim=0).values
+    best_i = torch.where(row_s == best_s, rows - 1, R_eff).min(dim=0).values.long()
+    found = best_s > -INF
+    col = torch.arange(N, device=dev)
+    jd = (jm << 15) | torch.clamp(dm, max=(1 << 15) - 1)
+    out = torch.zeros((4 + R // _TRACE, N), dtype=i32, device=dev)
+    out[0] = torch.where(found, best_i.to(i32) + 1, 0)
+    out[1] = torch.where(found, jm[best_i, col], 0)
+    out[2] = torch.where(found, dm[best_i, col], 0)
+    out[3] = best_s
+    n_trace = R_eff // _TRACE
+    out[4 : 4 + n_trace] = jd[_TRACE - 1 : n_trace * _TRACE : _TRACE]
+    out[4 + n_trace :] = jd[-1]
     return out
 
 

@@ -262,36 +262,54 @@ def nw_dist_full_reference(templates, t_lens, reads, read_lens, T: int,
 
 def _nw_dist_rows(templates, t_lens, reads, read_lens, T: int,
                   global_ends: bool):
+    """The DP's rows in int32 (every distance fits).  A template leaves
+    the loop after its last row, which is the last that can end a pair
+    of it."""
     dev = templates.device
-    i64 = torch.int64
-    tpl = templates.to(i64)
-    rd = reads.to(i64)
-    V, N, RL = rd.shape
-    tl = t_lens.to(i64)[:, None, None]
-    rl = read_lens.to(i64)[..., None]
-    j = torch.arange(RL + 1, device=dev, dtype=i64)[None, None, :]
-    valid_j = j <= rl
-    D = torch.where(valid_j, j if global_ends else 0, INF).expand(V, N, RL + 1)
-    best = torch.full((V, N), INF, dtype=i64, device=dev)
-    inf = torch.full((V, N, 1), INF, dtype=i64, device=dev)
+    i32 = torch.int32
+    V, N, RL = reads.shape
+    tl = t_lens.to(torch.int64)
+    rl = read_lens.to(torch.int64)
+    j = torch.arange(RL + 1, device=dev, dtype=i32)[None, None, :]
+    valid_j = j <= rl[..., None]
+    D = torch.where(valid_j, j if global_ends else j * 0, INF)
+    # a pair ends at column rl: inside the row, or nowhere
+    end_col = rl.clamp(0, RL)[..., None]
+    ends = (rl >= 0) & (rl <= RL)
+    best = torch.full((V, N), INF, dtype=i32, device=dev)
+    out = torch.full((V, N), INF, dtype=i32, device=dev)
+    inf = torch.full((V, N, 1), INF, dtype=i32, device=dev)
+    pairs = torch.arange(V, device=dev)  # each state row's template
     for i in range(1, T + 1):
-        sub = (rd != tpl[:, i - 1][:, None, None]).to(i64)
+        sub = reads != templates[:, i - 1][:, None, None]
         diag = torch.cat([inf, D[..., :-1] + sub], dim=-1)
         up = D + 1
         if not global_ends:  # free leading template gap at j == 0
-            up = torch.cat([up[..., :1].clamp(max=0), up[..., 1:]], dim=-1)
-        tmp = torch.minimum(diag, up)
-        ok = valid_j & (i <= tl)
-        tmp = torch.where(ok, tmp, INF)
-        closed = torch.cummin(tmp - j, dim=-1).values
-        D = torch.where(ok, torch.clamp(torch.minimum(tmp, closed + j), max=INF),
-                        INF)
-        end = (j == rl) & (i == tl) if global_ends else j == rl
-        best = torch.minimum(best, torch.where(end, D, INF).min(dim=-1).values)
-        if not global_ends:  # the template's end anywhere in the read
-            row = torch.where(i == tl, D, INF).min(dim=-1).values
-            best = torch.minimum(best, row)
-    return best.to(torch.int32)
+            up[..., 0].clamp_(max=0)
+        tmp = torch.where(valid_j, torch.minimum(diag, up), INF)
+        # the closure min_{q<=j} tmp[q] + (j - q), never above tmp itself
+        D = torch.where(valid_j,
+                        torch.clamp(torch.cummin(tmp - j, dim=-1).values + j,
+                                    max=INF), INF)
+        at_end = torch.where(ends, D.gather(-1, end_col)[..., 0], INF)
+        last = (tl == i)[:, None]
+        if global_ends:
+            best = torch.where(last, torch.minimum(best, at_end), best)
+        else:  # the template's end anywhere in the read
+            best = torch.minimum(best, at_end)
+            best = torch.where(last, torch.minimum(best, D.min(dim=-1).values),
+                               best)
+        if bool(last.any()):  # these templates' pairs are done
+            done = last[:, 0]
+            out[pairs[done]] = best[done]
+            keep = ~done
+            (pairs, tl, D, valid_j, end_col, ends, best, inf, reads,
+             templates) = (x[keep] for x in (pairs, tl, D, valid_j, end_col,
+                                              ends, best, inf, reads, templates))
+            if not len(pairs):
+                return out
+    out[pairs] = best
+    return out
 
 
 def banded_nw_dist_reference(templates, t_lens, reads, read_lens, T: int,

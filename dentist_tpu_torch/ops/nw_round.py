@@ -350,10 +350,10 @@ def nw_round_reference(tpl, t_lens, reads, read_lens, centers, T: int, W: int,
 def _nw_round_lanes(tpl, t_lens, reads, read_lens, centers, T: int, W: int,
                     S: int, NWIN: int, lead_free: int = -1):
     dev = tpl.device
-    i64 = torch.int64
+    i32, i64 = torch.int32, torch.int64
     N, RL = reads.shape
-    tplT = (tpl.t().to(i64) & 3)  # (N, T)
-    rd = reads.to(i64) & 3
+    tplT = tpl.t().to(torch.uint8) & 3  # (N, T)
+    rd = reads.to(torch.uint8) & 3
     rl = read_lens.to(i64)
     tl = t_lens.to(i64)
     cen = centers.t().to(i64)  # (N, T+1)
@@ -369,36 +369,50 @@ def _nw_round_lanes(tpl, t_lens, reads, read_lens, centers, T: int, W: int,
     j0 = offs[:, :1] + p
     d_init = (torch.zeros_like(j0) if lead_free < 0
               else torch.clamp(j0 - lead_free, min=0))
-    D = torch.where((j0 >= 0) & (j0 <= rl[:, None]), d_init, INF)
+    D = torch.where((j0 >= 0) & (j0 <= rl[:, None]), d_init, INF).to(i32)
     # rows past every lane's template are all invalid: no moves, no ends
     moves = torch.full((T, N, W), _NONE, dtype=torch.uint8, device=dev)
-    d_at = torch.full((T, N), INF, dtype=i64, device=dev)
+    d_at = torch.full((T, N), INF, dtype=i32, device=dev)
     T_eff = min(T, int(tl.max())) if N else 0
+    # per row and lane, before the loop: the band's shift s (any s; the
+    # host's centers give 0..2), the cells with j >= 1 and j == 0, the
+    # valid cells [lo, hi] (0 <= j <= rl, rows up to t_len), the read
+    # column of cell 0 and the cell of j == rl, if the band holds it
+    offT = offs.t()  # (T+1, N)
+    rows = torch.arange(T + 1, device=dev)[:, None]
+    shift = torch.diff(offT, dim=0, prepend=offT[:1])
+    margin = 1 + int(shift.abs().max()) if T_eff else 1
+    g_at = shift + (margin - 1)
+    wide = 1 << 30
+    j1 = (1 - offT).clamp(-wide, wide).to(i32)
+    jz = (-offT).clamp(-wide, wide).to(i32)
+    hi = torch.where(rows <= tl, rl - offT, -1).clamp(-wide, wide).to(i32)
+    r_at = offT - 1
+    at_rl = rl - offT
+    end_ok = (at_rl >= 0) & (at_rl < W) & (rows <= tl)
+    at_rl = at_rl.clamp(0, W - 1)
+    pad = torch.full((N, margin), INF, dtype=i32, device=dev)
+    p32 = p.to(i32)
+    p1 = torch.arange(W + 1, device=dev)[None, :]
     for i in range(1, T_eff + 1):
-        off = offs[:, i : i + 1]
-        s = off - offs[:, i - 1 : i]
-        # the band shifted by s (any s; the host's centers give 0..2):
-        # D[q] for 0 <= q < W, INF outside
-        E = torch.where((p + s >= 0) & (p + s < W),
-                        D.gather(1, (p + s).clamp(0, W - 1)), INF)
-        E1 = torch.where((p + s >= 1) & (p + s <= W),
-                         D.gather(1, (p + s - 1).clamp(0, W - 1)), INF)
-        r_ch = rd.gather(1, torch.clamp(off - 1 + p, 0, RL - 1))
-        j = off + p
-        sub = (r_ch != tplT[:, i - 1 : i]).to(i64)
-        diag = torch.where(j >= 1, E1 + sub, INF)
-        up = E + 1
-        up = torch.where(j == 0, torch.clamp(up, max=0), up)
+        # g[q] = D[q + s - 1], INF outside the band: E1 = g[:W], E = g[1:]
+        g = torch.cat([pad, D, pad], dim=1).gather(1, p1 + g_at[i][:, None])
+        r_ch = rd.gather(1, torch.clamp(r_at[i][:, None] + p, 0, RL - 1))
+        sub = r_ch != tplT[:, i - 1 : i]
+        diag = torch.where(p32 >= j1[i][:, None], g[:, :W] + sub, INF)
+        up = g[:, 1:] + 1
+        up = torch.where(p32 == jz[i][:, None], torch.clamp(up, max=0), up)
         tmp = torch.minimum(diag, up)
         choose_up = up < diag
-        D = torch.cummin(tmp - p, dim=1).values + p
+        D = torch.cummin(tmp - p32, dim=1).values + p32
         from_left = D < tmp
-        valid = (j >= 0) & (j <= rl[:, None]) & (i <= tl)[:, None]
+        valid = (p32 >= jz[i][:, None]) & (p32 <= hi[i][:, None])
         D = torch.where(valid, torch.clamp(D, max=INF), INF)
-        move = torch.where(from_left, _LEFT, torch.where(choose_up, _UP, _DIAG))
-        move = move | (r_ch << 2) | (sub << 4)
-        moves[i - 1] = torch.where(valid, move, _NONE).to(torch.uint8)
-        d_at[i - 1] = torch.where((j == rl[:, None]) & valid, D, INF).min(dim=1).values
+        move = torch.where(from_left, _LEFT, choose_up.to(torch.uint8))  # _UP or _DIAG
+        move = move | (r_ch << 2) | (sub.to(torch.uint8) << 4)
+        moves[i - 1] = torch.where(valid, move, _NONE)
+        d_at[i - 1] = torch.where(end_ok[i], D.gather(1, at_rl[i][:, None])[:, 0],
+                                  INF)
 
     dmin = d_at.min(dim=0).values
     best_i = torch.argmin(d_at, dim=0) + 1

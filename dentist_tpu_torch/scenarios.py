@@ -27,6 +27,17 @@ held to another run by (:func:`diff_digests` names what differs).
 that ``scripts/phase_c_torch.py`` and ``bench_torch.py`` share, and
 :func:`result_digests` digests in-memory stage results (``bench_torch.py``'s
 phases A and B) as :func:`phase_c_digests` digests stage artifacts.
+
+The suite scenarios (:data:`SUITE`) are the small cases of the JAX
+package's tests of the modules that reach the device: the gap-closing
+cases of ``tests/test_anchor_unique.py``, ``test_bubbles.py``,
+``test_overlap_crop.py``, ``test_multiscaffold.py`` and
+``test_validation_pass.py`` (:func:`gap_case`, :func:`bubble_case`) and
+the read sets of ``tests/test_consensus.py`` (:func:`consensus_case`),
+with those tests' seeds and sizes.  :func:`run_suite` runs one through
+the modules it is given (the port's, :func:`port_modules`, or another
+package's of the same names) and :func:`suite_digests` digests what it
+returns.
 """
 
 from __future__ import annotations
@@ -37,11 +48,12 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from .io.fasta import (FastaRecord, codes_to_seq, read_fasta,
+from .io.fasta import (FastaRecord, codes_to_seq, read_fasta, seq_to_codes,
                        write_fasta)
+from .models.sequences import SeqStore, split_scaffolds
 from .sim.genome import insert_repeats, insert_tandem, random_genome
 from .sim.partial import build_partial_assembly, random_gaps
-from .sim.reads import simulate_reads
+from .sim.reads import _mutate, simulate_reads
 from .utils.regions import Region
 
 __all__ = ["Scenario", "e2e_scenario", "phase_a_scenario", "phase_c_scenario",
@@ -49,7 +61,8 @@ __all__ = ["Scenario", "e2e_scenario", "phase_a_scenario", "phase_c_scenario",
            "repeat_assembly", "write_truth", "staged_commands",
            "closed_exactly", "closed_exactly_in", "inexact_gaps",
            "closed_gap_pairs", "result_digests", "write_phase_c",
-           "run_phase_c"]
+           "run_phase_c", "SUITE", "SUITE_REFERENCE", "GapCase", "gap_case", "bubble_case",
+           "consensus_case", "port_modules", "run_suite", "suite_digests"]
 
 
 @dataclass
@@ -387,17 +400,20 @@ def write_phase_c(d: str, mb: float, gaps: int, want_inputs: dict
 
 
 def run_phase_c(sc: Scenario, asm: str, reads: str, d: str, cuda: bool,
-                recorder=None) -> dict:
+                recorder=None, store_capacity: int | None = None) -> dict:
     """One phase C run: ``run_pipeline`` on ``asm`` and ``reads`` (as
     :func:`write_phase_c` wrote them) with its output in ``d``
     (``out.fasta`` and its AGP and BED) and every stage artifact in
-    ``d/work``, from a fresh device store, the stage seconds and launch
+    ``d/work``, from a fresh device store (of ``store_capacity`` bytes:
+    one too small for the reads sends their alignment down the
+    host-window path, K1p, as at 100 Mb), the stage seconds and launch
     counts set to 0 first; on the card (``cuda``) its peak device memory
     counted from the start and its clock stopped after a synchronize.
     ``recorder``, a :class:`~dentist_tpu_torch.dryrun.LaunchRecorder`,
     records every launch's bucket (it keeps K3p metas and K4 inputs on
     the card, so without one the run is as a user's).  Returns the wall,
-    ``STAGE_SECONDS`` by key, launches per kernel mode, store resets,
+    ``STAGE_SECONDS`` by key, launches per kernel mode, the store's size
+    (MiB) and its resets,
     peak device memory and host RSS (GiB), the recorder's ``summary()``
     as ``buckets``, and the run's :func:`phase_c_digests` with the
     seconds they took."""
@@ -414,7 +430,7 @@ def run_phase_c(sc: Scenario, asm: str, reads: str, d: str, cuda: bool,
     from .utils.log import tee_log_file
 
     work = os.path.join(d, "work")
-    banded.reset_device_store()
+    store = banded.reset_device_store(store_capacity)
     reset_stage_seconds()
     reset_launch_counts()
     if cuda:
@@ -430,6 +446,7 @@ def run_phase_c(sc: Scenario, asm: str, reads: str, d: str, cuda: bool,
     tee_log_file(None)  # run_pipeline tees its log into the workdir
     run = {"wall_s": wall, "stage_seconds": dict(STAGE_SECONDS),
            "launches": {k: v for k, v in launch_counts().items() if v},
+           "store_mib": store.capacity / 2**20,
            "store_resets": banded.device_store().epoch - epoch0,
            "peak_device_gib": (torch.cuda.max_memory_allocated() / 2**30
                                if cuda else None),
@@ -440,3 +457,317 @@ def run_phase_c(sc: Scenario, asm: str, reads: str, d: str, cuda: bool,
     run["digests"] = phase_c_digests(sc, d, work, inputs=os.path.dirname(asm))
     run["digest_s"] = time.perf_counter() - t0
     return run
+
+
+# ======================================================================
+# The JAX package's tests of device-reaching modules, as scenarios
+# ======================================================================
+
+#: the suite scenarios, each with the JAX test whose scenario it builds:
+#: the gap-closing cases (:func:`gap_case`), then ``tests/test_consensus.py``'s
+#: read sets (:func:`consensus_case`)
+SUITE = {
+    "repeat_edge": "tests/test_anchor_unique.py:87",
+    "bubbles": "tests/test_bubbles.py:16",
+    "overlap_crop": "tests/test_overlap_crop.py:15",
+    "two_chromosomes": "tests/test_multiscaffold.py:15",
+    "validation_kept": "tests/test_validation_pass.py:26",
+    "validation_purged": "tests/test_validation_pass.py:33",
+    "consensus_clean": "tests/test_consensus.py:57",
+    "consensus_13pct": "tests/test_consensus.py:64",
+    "consensus_low_coverage": "tests/test_consensus.py:71",
+    "consensus_tie_policy": "tests/test_consensus.py:80",
+    "consensus_seeds": "tests/test_consensus.py:94",
+    "consensus_moderate": "tests/test_consensus.py:103",
+    "consensus_variable_ends": "tests/test_consensus.py:121",
+    "consensus_single_read": "tests/test_consensus.py:141",
+    "consensus_win_diffs": "tests/test_consensus.py:147",
+    "consensus_batch": "tests/test_consensus.py:157",
+    "consensus_rank": "tests/test_consensus.py:176",
+    "consensus_junk_template": "tests/test_consensus.py:190",
+    "consensus_incremental": "tests/test_consensus.py:248",
+}
+
+
+#: the JAX package's digests of the suite scenarios in a checkout of the
+#: repository: ``scripts/jax_suite_reference.py`` writes them (the JAX
+#: package's CPU run of :func:`run_suite`), ``chip_smoke.py`` phase 19 and
+#: ``tests/test_torch_suite_*.py`` hold the port to them
+SUITE_REFERENCE = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scripts",
+    "jax_suite_reference.json")
+
+
+@dataclass
+class GapCase:
+    """A gapped assembly with its truths and reads as ``close_gaps``
+    takes them, the ``PipelineConfig`` fields its test sets, and (bubbles
+    only) the repeat mask its test maps under."""
+    truths: list[np.ndarray]
+    contigs: SeqStore
+    structure: object
+    reads: SeqStore
+    read_list: list[np.ndarray]
+    config: dict
+    repeats: Region | None = None
+
+
+def _gapped(truths, records, sim, named, config, repeats=None) -> GapCase:
+    """``records`` split into contigs, and reads drawn from ``truths`` at
+    13 % error with ``sim`` = (coverage, mean length, sd, seed)."""
+    contigs, structure = split_scaffolds(records)
+    coverage, mean, sd, seed = sim
+    read_list, _ = simulate_reads(truths, coverage=coverage, mean_length=mean,
+                                  sd_length=sd, error=0.13, seed=seed)
+    names = [f"read{i + 1}" for i in range(len(read_list))] if named else None
+    reads = SeqStore(np.concatenate(read_list),
+                     np.array([len(r) for r in read_list]), names)
+    return GapCase(truths, contigs, structure, reads, read_list, config,
+                   repeats)
+
+
+def gap_case(key: str) -> GapCase:
+    """The gap-closing scenario of :data:`SUITE`'s ``key``, as its JAX test
+    builds it."""
+    if key == "repeat_edge":  # the entering contig's edge copied into the gap
+        left = random_genome(10_000, seed=71)
+        right = random_genome(10_000, seed=72)
+        interior = np.concatenate([random_genome(400, seed=73), right[:300],
+                                   random_genome(300, seed=74)])
+        seq = codes_to_seq(left) + "n" * len(interior) + codes_to_seq(right)
+        return _gapped([np.concatenate([left, interior, right])],
+                       [FastaRecord("scaf0", seq_to_codes(seq))],
+                       (20, 8000, 2000, 75), True,
+                       {"no_validation": True, "read_coverage": 20.0})
+    if key == "bubbles":  # c1 | gap | c2 (800 bp, masked) | gap | c3
+        truths = [random_genome(40_000, seed=90)]
+        gaps = Region.from_triples([(0, 18_000, 18_100), (0, 18_900, 19_000)])
+        asm = build_partial_assembly(truths, gaps)
+        return _gapped(truths, [FastaRecord("scaf0", asm[0])],
+                       (20, 8000, 2000, 91), False, {},
+                       Region.from_triples([(2, 0, 800)]))
+    if key == "overlap_crop":  # the flank contigs share 200 bp
+        truth = random_genome(24_000, seed=60)
+        seq = (codes_to_seq(truth[:12_200]) + "n" * 50
+               + codes_to_seq(truth[12_000:]))
+        return _gapped([truth], [FastaRecord("scaf0", seq_to_codes(seq))],
+                       (20, 8000, 2000, 61), True,
+                       {"no_validation": True, "read_coverage": 20.0})
+    if key == "two_chromosomes":
+        truths = [random_genome(30_000, seed=500), random_genome(24_000, seed=501)]
+        gaps = Region.from_triples([(0, 14_000, 14_150), (1, 11_000, 11_090)])
+        asm = build_partial_assembly(truths, gaps)
+        return _gapped(truths, [FastaRecord(f"chr{i + 1}", s)
+                                for i, s in enumerate(asm)],
+                       (18, 8000, 2500, 502), False, {"read_coverage": 18})
+    if key in ("validation_kept", "validation_purged"):
+        truths = [random_genome(40_000, seed=300)]
+        gaps = random_gaps(truths, n_gaps=1, min_size=80, max_size=200,
+                           margin=9000, seed=301)
+        asm = build_partial_assembly(truths, gaps)
+        config = {"read_coverage": 18}
+        if key == "validation_purged":
+            config["no_validation"] = True
+        return _gapped(truths, [FastaRecord("s0", asm[0])],
+                       (18, 9000, 2500, 302), False, config)
+    raise KeyError(key)
+
+
+def _noisy(truth: np.ndarray, n: int, error: float, seed: int) -> list:
+    rng = np.random.default_rng(seed)
+    return [_mutate(truth, rng, error) for _ in range(n)]
+
+
+def consensus_case(key: str) -> list[tuple[np.ndarray, list[np.ndarray]]]:
+    """The (truth, reads) pairs of :data:`SUITE`'s consensus ``key``, as
+    ``tests/test_consensus.py`` draws them."""
+    if key == "consensus_clean":
+        t = random_genome(800, seed=1)
+        return [(t, [t.copy() for _ in range(5)])]
+    if key == "consensus_13pct":
+        t = random_genome(1000, seed=2)
+        return [(t, _noisy(t, 20, 0.13, 3))]
+    if key == "consensus_low_coverage":
+        t = random_genome(600, seed=4)
+        return [(t, _noisy(t, 8, 0.13, 5))]
+    if key == "consensus_tie_policy":
+        t = random_genome(700, seed=61)
+        return [(t, _noisy(t, 20, 0.13, 62))]
+    if key == "consensus_seeds":
+        return [(t, _noisy(t, 20, 0.13, seed + 50)) for seed in (100, 101, 102)
+                for t in [random_genome(700, seed=seed)]]
+    if key == "consensus_moderate":
+        pairs = []
+        for seed in (1000 + 0 * 7 + 14 * 131 + 600, 1000 + 7 * 7 + 14 * 131 + 600,
+                     1000 + 5 * 7 + 14 * 131 + 1500, 1000 + 11 * 7 + 14 * 131 + 1500):
+            length = 600 if seed < 1000 + 14 * 131 + 1000 else 1500
+            t = random_genome(length, seed=seed)
+            rng = np.random.default_rng(seed)
+            pairs.append((t, [_mutate(t, rng, 0.13) for _ in range(14)]))
+        return pairs
+    if key == "consensus_variable_ends":
+        t = random_genome(1500, seed=6)
+        rng = np.random.default_rng(7)
+        ends = [1500, 1500, 1500, 1200, 1000, 800, 1500, 1400, 1300, 1500,
+                1500, 1500, 1100, 1500, 1500]
+        return [(t, [_mutate(t[:e], rng, 0.13) for e in ends])]
+    if key == "consensus_single_read":
+        t = random_genome(300, seed=8)
+        return [(t, [t])]
+    if key == "consensus_win_diffs":
+        t = random_genome(1000, seed=9)
+        return [(t, _noisy(t, 15, 0.13, 10))]
+    if key == "consensus_batch":
+        return [(t, _noisy(t, 12, 0.13, seed + 7)) for seed in (200, 201, 202, 203)
+                for t in [random_genome(400 + 137 * (seed % 3), seed=seed)]]
+    if key == "consensus_rank":  # read 4 much worse than the rest
+        t = random_genome(900, seed=30)
+        reads = _noisy(t, 10, 0.13, 31)
+        reads[4] = _mutate(t, np.random.default_rng(32), 0.45)
+        return [(t, reads)]
+    if key == "consensus_junk_template":  # the median-length read is junk
+        t = random_genome(800, seed=40)
+        reads = _noisy(t, 15, 0.13, 41)
+        med = _median_read(reads)
+        reads[med] = random_genome(len(reads[med]), seed=999)
+        return [(t, reads)]
+    if key == "consensus_incremental":
+        t = random_genome(900, seed=31)
+        return [(t, _noisy(t, 12, 0.12, 32))]
+    raise KeyError(key)
+
+
+def _median_read(reads) -> int:
+    order = sorted(range(len(reads)), key=lambda i: len(reads[i]))
+    return order[len(order) // 2]
+
+
+def port_modules():
+    """The port's modules :func:`run_suite` calls, by the names it uses."""
+    from types import SimpleNamespace
+
+    from . import pipeline
+    from .models import pileups, process
+    from .ops import consensus, mapper
+
+    return SimpleNamespace(pipeline=pipeline, mapper=mapper, pileups=pileups,
+                           process=process, consensus=consensus)
+
+
+def run_suite(key: str, mods) -> dict:
+    """:data:`SUITE`'s ``key`` through ``mods`` (:func:`port_modules`, or
+    another package's ``pipeline``, ``mapper``, ``pileups``, ``process``
+    and ``consensus`` modules), called as the JAX test calls them; returns
+    the scenario (``case``) and what each call returned, by name."""
+    if key.startswith("consensus_"):
+        return _run_consensus(key, mods.consensus)
+    case = gap_case(key)
+    if key == "bubbles":
+        c, PU = case.contigs, mods.pileups
+        las, chains = mods.mapper.map_reads(
+            c.codes, c.offsets, c.lengths, case.read_list,
+            config=mods.mapper.MapperConfig(), mask_intervals=case.repeats.iv)
+        ctx = PU.ChainCtx(las, chains, c.lengths, case.reads.lengths)
+        plain = PU.collect_pile_ups(
+            PU.ChainCtx(las, chains, c.lengths, case.reads.lengths),
+            case.structure.gaps, case.repeats, PU.CollectConfig())
+        pile_ups = PU.collect_pile_ups(ctx, case.structure.gaps, case.repeats,
+                                       PU.CollectConfig(), contigs=c,
+                                       reads=case.reads)
+        insertions = mods.process.process_pile_ups(
+            pile_ups, ctx, c, case.reads, case.repeats,
+            mods.process.ProcessConfig())
+        return {"case": case, "las": las, "chains": chains, "plain": plain,
+                "ctx": ctx, "pile_ups": pile_ups, "insertions": insertions}
+    P = mods.pipeline
+    cfg = P.PipelineConfig(**case.config)
+    result = P.close_gaps(case.contigs, case.structure, case.reads,
+                          case.read_list, cfg)
+    out = {"case": case, "result": result}
+    if key == "validation_purged":  # against reads that support nothing
+        noise = unrelated_reads()
+        noise_store = SeqStore(np.concatenate(noise),
+                               np.array([len(r) for r in noise]))
+        out["skip"] = P._validation_pass(result, noise, noise_store, cfg)
+    return out
+
+
+def _run_consensus(key: str, C) -> dict:
+    pairs = consensus_case(key)
+    out = {"pairs": pairs}
+    if key == "consensus_tie_policy":
+        reads = pairs[0][1]
+        out["results"] = [C.consensus(reads)] + [
+            C.consensus(reads, tie_policy=p) for p in ("delete", "insert", "none")]
+    elif key == "consensus_batch":
+        sets = [reads for _, reads in pairs]
+        out["results"] = C.consensus_batch(sets) + [C.consensus(rs) for rs in sets]
+    elif key == "consensus_junk_template":
+        reads = pairs[0][1]
+        med = _median_read(reads)
+        first = C.consensus(reads, template_idx=med)
+        ranked = C.rank_reference_reads(first.win_diffs, first.read_spans)
+        nxt = next(int(r) for r in ranked if int(r) != med)
+        out.update(results=[first, C.consensus(reads, template_idx=nxt)],
+                   ranked=ranked, med=med, next=nxt)
+    elif key == "consensus_incremental":
+        reads = pairs[0][1]
+        template = reads[5]
+        [base] = C._run_round([C._ConsJob(template, reads)], 128)
+        [full] = C._run_round([C._ConsJob(template, reads, base.jpath)], 128)
+        dirty = np.ones(len(template), dtype=bool)
+        [inc] = C._run_round([C._ConsJob(template, reads, base.jpath,
+                                         prev=base, dirty=dirty)], 128)
+        out["rounds"] = [base, full, inc]
+    else:
+        out["results"] = [C.consensus(reads) for _, reads in pairs]
+        if key == "consensus_rank":
+            res = out["results"][0]
+            out["ranked"] = C.rank_reference_reads(res.win_diffs, res.read_spans)
+    return out
+
+
+#: the fields of a consensus result and of a realign round that the suite
+#: digests hold
+CONSENSUS_FIELDS = ("sequence", "read_diffs", "read_spans", "win_diffs",
+                    "coverage")
+ROUND_FIELDS = ("sym", "ins", "jpath", "win", "diffs")
+
+
+def suite_digests(key: str, out: dict) -> dict:
+    """The digests of :func:`run_suite`'s ``out``: a gap-closing case's
+    FASTA records, AGP and BED rows (sha256 of their JSON) and gaps
+    closed, with the skip set a validation pass returned; the bubbles
+    case's :func:`result_digests` and its pile-ups without bubble
+    resolution; a consensus case's result fields (realign rounds'
+    fields), each result's by index, with the ranks and template indices
+    it computed."""
+    import json
+
+    if "result" in out:
+        r = out["result"]
+        d = {"output": hashlib.sha256(json.dumps(
+                 [r.records, r.agp_rows, r.bed_rows]).encode()).hexdigest(),
+             "closed": int(r.n_closed_gaps)}
+        if "skip" in out:
+            d["skip"] = sorted([int(a), int(b)] for a, b in out["skip"])
+        return d
+    if "pile_ups" in out:
+        d = result_digests(out["las"], out["chains"], out["pile_ups"],
+                           out["insertions"])
+        d["pile-ups without bubbles"] = result_digests(
+            pile_ups=out["plain"])["pile-ups"]
+        return d
+    if "rounds" in out:
+        arrays = {f"{i}.{f}": getattr(r, f) for i, r in enumerate(out["rounds"])
+                  for f in ROUND_FIELDS}
+        return {"rounds": arrays_sha256(arrays)}
+    arrays = {f"{i}.{f}": getattr(r, f) for i, r in enumerate(out["results"])
+              for f in CONSENSUS_FIELDS}
+    d = {"results": arrays_sha256(arrays)}
+    if "ranked" in out:
+        d["ranked"] = [int(x) for x in out["ranked"]]
+    for name in ("med", "next"):
+        if name in out:
+            d[name] = int(out[name])
+    return d

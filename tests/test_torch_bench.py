@@ -275,18 +275,20 @@ def test_missing_stage_key_fails():
 @pytest.mark.parametrize("fault", [None, "gate", "trials", "launch"])
 def test_chip_smoke_phase_18_reads_the_line(ab, c_trial, monkeypatch, fault):
     """``chip_smoke.py`` phase 18 passes a line with every gate passed,
-    three phase C trials and every main-path kernel launched in each, and
-    fails a line that lacks a gate, a trial or a kernel's launch."""
+    the phase C trials it asks for and every main-path kernel launched in
+    each, and fails a line that lacks a gate or a kernel's launch, or has
+    another number of trials."""
     import chip_smoke
 
     a, b, _ = ab
     t = dict(c_trial[1], launches={m: 1 for m in chip_smoke.MAIN_PATH_KERNELS})
-    trials = [t, dict(t, close_gaps_seconds=t["close_gaps_seconds"] + 1), t]
+    trials = [dict(t, close_gaps_seconds=t["close_gaps_seconds"] + i)
+              for i in range(chip_smoke.BENCH_TRIALS)]
     if fault == "trials":
-        trials = trials[:2]
+        trials.append(t)
     if fault == "launch":
-        trials[1] = dict(t, launches={m: 1 for m in chip_smoke.MAIN_PATH_KERNELS
-                                      if m != "K2r"})
+        trials[-1] = dict(t, launches={m: 1 for m in chip_smoke.MAIN_PATH_KERNELS
+                                       if m != "K2r"})
     c = {"mb": 3, "gaps": 16, "n_reads": 2380, "datagen_seconds": 1.0,
          "trials": trials}
     line = bench_torch.result_line(2.0, a, b, c)

@@ -323,3 +323,95 @@ def test_extend_rejects_bad_widths(packed, W):
         else:
             TB.extend(torch.zeros(4096, dtype=torch.uint8),
                       torch.zeros((12, N), dtype=torch.int32), num_k, R=R, W=W)
+
+
+def _port_table(a_win, b_win, a_len, b_len, offs, lane_k, diag_lo, diag_hi,
+                R, W):
+    """K1t's wrapper on CPU tensors: the host windows as one store."""
+    N, BW = a_win.shape[0], b_win.shape[1]
+    scratch = torch.from_numpy(np.concatenate([a_win.ravel(), b_win.ravel()]))
+    meta = TB.host_window_meta(a_len, b_len, lane_k, diag_lo, diag_hi, N, R, BW)
+    launches = TB.table_launches
+    out = TB.extend_table(scratch, torch.from_numpy(meta), offs, R=R, W=W)
+    assert TB.table_launches == launches, "a CPU tensor must not launch K1t"
+    return out.numpy()
+
+
+@pytest.mark.parametrize("W,N,R,kind,seed", _EDGE_CASES + _NARROW_CASES[:2])
+def test_extend_table_equals_jax(W, N, R, kind, seed):
+    """K1t (the table mode) at the edge cases: on a table whose later
+    schedules are random walks, equal to JAX's ``_extend_scan_v3`` on the
+    same table, lanes and identity-diagonal bounds; on the ladder of the
+    slopes, equal to K1 on the same lanes."""
+    from k1t_tables import walk_table
+
+    a_win, b_win, a_len, b_len, num_k, lane_k, _ = _edge_host_lanes(
+        seed, W, N, R, kind)
+    b_win[:, W : W + R] = a_win
+    diag_lo, diag_hi = _diag_bounded(N, seed)
+    offs = walk_table(seed, num_k, R, W, walks=max(1, len(num_k) // 2))
+    ref = np.asarray(B._extend_scan_v3(
+        jnp.asarray(np.ascontiguousarray(a_win.T)), jnp.asarray(b_win),
+        jnp.asarray(b_len), jnp.asarray(offs.astype(np.int32)),
+        jnp.asarray(lane_k), jnp.asarray(a_len), jnp.asarray(diag_lo),
+        jnp.asarray(diag_hi), W=W, bound_diag=True))
+    args = (a_win, b_win, a_len, b_len)
+    bounds = (lane_k, diag_lo, diag_hi, R, W)
+    assert (ref[0] > 0).any(), "scenario must produce alignments"
+    np.testing.assert_array_equal(_port_table(*args, offs, *bounds), ref)
+    np.testing.assert_array_equal(
+        _port_table(*args, TB.ladder(num_k, R, W), *bounds),
+        _port_host_windows(*args, num_k, *bounds))
+
+
+def test_extend_table_other_row_0_equals_jax():
+    """A table whose shared row 0 is not -W/2: JAX starts every lane's
+    band there, and so does K1t."""
+    W, N, R, K = 64, 16, 252, 4
+    a_win, b_win, a_len, b_len, num_k, lane_k, _ = _host_lanes(11, W, N, R, K)
+    offs = TB.ladder(num_k, R, W) + 3
+    diag_lo = np.full(N, -TB.DIAG_UNBOUNDED, np.int32)
+    diag_hi = np.full(N, TB.DIAG_UNBOUNDED, np.int32)
+    ref = np.asarray(B._extend_scan_v3(
+        jnp.asarray(np.ascontiguousarray(a_win.T)), jnp.asarray(b_win),
+        jnp.asarray(b_len), jnp.asarray(offs.astype(np.int32)),
+        jnp.asarray(lane_k), jnp.asarray(a_len), jnp.asarray(diag_lo),
+        jnp.asarray(diag_hi), W=W, bound_diag=False))
+    got = _port_table(a_win, b_win, a_len, b_len, offs, lane_k, diag_lo,
+                      diag_hi, R, W)
+    assert (ref[0] > 0).any()
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("fault", ["row_0", "step_3", "backwards", "past_window",
+                                   "before_window", "rows", "lane_k", "b_width"])
+def test_extend_table_refuses_tables_jax_reads_otherwise(fault):
+    """K1t refuses, with a ``KernelError``, the tables on which JAX's
+    ``_extend_scan_v3`` computes something else than the DP along them
+    (a row 0 the schedules do not share, a step outside 0..2 columns, a
+    window clamped at either end of B), a table of other rows, a lane
+    whose schedule is not in the table and a B window of another width."""
+    from dentist_tpu_torch.device import set_device
+
+    set_device("cpu")
+    W, N, R, K = 64, 4, 252, 2
+    a_win, b_win, a_len, b_len, num_k, lane_k, _ = _host_lanes(3, W, N, R, K)
+    offs = TB.ladder(num_k, R, W)
+    if fault == "row_0":
+        offs[0, 1] += 1
+    elif fault == "step_3":
+        offs[10:, 0] += 3
+    elif fault == "backwards":
+        offs[10:, 0] -= 3
+    elif fault == "past_window":
+        offs += 100
+    elif fault == "before_window":
+        offs -= W
+    elif fault == "rows":
+        offs = offs[:-1]
+    elif fault == "lane_k":
+        lane_k = lane_k + 1
+    elif fault == "b_width":
+        b_win = np.pad(b_win, ((0, 0), (0, 4)))
+    with pytest.raises(KernelError):
+        TB.extend_batch_multi(a_win, b_win, a_len, b_len, offs, lane_k, W=W)

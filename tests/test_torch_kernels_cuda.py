@@ -10,8 +10,9 @@ band widths of 1 to 256 cells, bands that move more than 32 cells a row
 and reads of one char.  Skipped where there is no GPU (a CUDA kernel has no CPU or interpret
 mode); on a machine with one, run ``python -m pytest --noconftest -m cuda
 tests/test_torch_kernels_cuda.py`` (``tests/conftest.py`` imports JAX).  Inputs are seeded numpy arrays at
-small shapes; every output must be bit-equal (integer DPs).  K1 and K1p
-also run at their edges: band widths 16 to 512, flat and steepest
+small shapes; every output must be bit-equal (integer DPs).  K1, K1p
+and K1t (K1's table mode, on random-walk schedules) also run at their
+edges: band widths 16 to 512, flat and steepest
 schedules, a_len on chunk and trace boundaries, B column ranges cut
 through the band, identity-diagonal bounds, and ragged lane blocks; K3
 and K3p at read widths of one and two words, read lengths on the word
@@ -125,6 +126,26 @@ def test_extend_kernel_equals_plain(cuda, W, N, R, kind):
     assert K1.launches == n0 + 1
     ref = K1.extend_reference(s, m, num_k, R=R, W=W)
     assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("W,N,R,kind", [
+    pytest.param(*e, id="edges-W{}-N{}-R{}-{}".format(*e)) for e in _EDGES])
+def test_extend_table_kernel_equals_plain(cuda, W, N, R, kind):
+    """K1t, the table mode, on the store-mode edges with a table whose
+    later schedules are random walks; on the ladder of the slopes, equal
+    to K1."""
+    from k1t_tables import walk_table
+
+    store, meta, num_k = _edge_resident(3, W, N, R, kind)
+    offs = walk_table(3, num_k, R, W, walks=max(1, len(num_k) // 2))
+    s, m = torch.from_numpy(store).to(cuda), torch.from_numpy(meta).to(cuda)
+    n0 = K1.table_launches
+    got = K1.extend_table(s, m, offs, R=R, W=W)
+    torch.cuda.synchronize()
+    assert K1.table_launches == n0 + 1
+    assert torch.equal(got, K1.extend_table_reference(s, m, offs, R=R, W=W))
+    assert torch.equal(K1.extend_table(s, m, K1.ladder(num_k, R, W), R=R, W=W),
+                       K1.extend(s, m, num_k, R=R, W=W))
 
 
 def _lanes(seed, T, RL, N):

@@ -2,8 +2,8 @@
 refuses to run.
 
 The checks run in subprocesses: they import every module of the port,
-and build the 60 kb scenario, with every ``jax`` and ``dentist_tpu``
-import blocked (``dentist_tpu_torch`` stays importable); a static check
+and build the 60 kb scenario and the suite scenarios, with every ``jax``
+and ``dentist_tpu`` import blocked (``dentist_tpu_torch`` stays importable); a static check
 reads every file of the port for such imports; and ``chip_smoke.py``
 runs on a machine without a GPU, where it must fail without printing a
 result — there is no silent CPU fallback on the main path.
@@ -87,6 +87,31 @@ print("built", len(sc.reads))
 """)
     assert proc.returncode == 0, proc.stderr
     assert "built" in proc.stdout
+
+
+def test_suite_scenarios_build_without_jax_or_the_jax_package():
+    """Every suite scenario (``scenarios.SUITE``: the JAX package's test
+    cases that ``chip_smoke.py`` phase 19 runs on the card) builds from
+    the port's copies alone."""
+    proc = _run(_BLOCK_JAX + """
+from dentist_tpu_torch import scenarios
+n = 0
+for key in scenarios.SUITE:
+    if key.startswith("consensus_"):
+        pairs = scenarios.consensus_case(key)
+        assert pairs and all(len(reads) for _, reads in pairs)
+    else:
+        case = scenarios.gap_case(key)
+        assert len(case.structure.gaps) and len(case.read_list) > 20
+        assert len(case.reads) == len(case.read_list)
+    n += 1
+mods = scenarios.port_modules()
+assert mods.pipeline.__name__ == "dentist_tpu_torch.pipeline"
+assert not any(_is_blocked(m) for m in sys.modules)
+print("built", n)
+""")
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split()[-1] == "19"
 
 
 def _imported_packages(text: str) -> set:

@@ -6,9 +6,10 @@ count pads), each rank a ``dentist_tpu_torch.dryrun`` worker process
 limited to one thread, run the port's plain kernel versions on their
 lane blocks and gather the results.  Every rank must return what the
 JAX package returns single device and on a mesh of the same size: the
-sharded K1p dispatch, ``map_reads`` and ``consensus_batch`` (JAX's
-mesh consensus with ``DENTIST_TPU_DENSE_CONS=1``, the dense result path
-the port gathers), and a two-rank ``close_gaps`` on the cut-down 30 kb
+sharded K1p dispatch and the eight-array one (K1t), ``map_reads`` and
+``consensus_batch`` (JAX's mesh consensus with
+``DENTIST_TPU_DENSE_CONS=1``, the dense result path the port gathers),
+and a two-rank ``close_gaps`` on the cut-down 30 kb
 scenario of ``test_torch_slice.py``, held by the sha256 of JAX's output
 that ``test_torch_slice.py::test_close_gaps_equals_jax`` checks against
 a live JAX run (which takes 40 s here).
@@ -60,11 +61,20 @@ def test_gather_lanes_tiles_every_rank_in_order():
         np.testing.assert_array_equal(out["result"], [1, 0, 1, 1, 0, 1])
 
 
-@pytest.mark.parametrize("n", [2, 3])
-def test_sharded_k1p_equals_jax_mesh(n):
-    from dentist_tpu.ops.banded import extend_batch_packed_async
+@pytest.mark.parametrize("n,mode", [
+    pytest.param(2, "K1p", id="2"), pytest.param(3, "K1p", id="3"),
+    pytest.param(2, "K1t", id="K1t-2"), pytest.param(3, "K1t", id="K1t-3")])
+def test_sharded_k1p_equals_jax_mesh(n, mode):
+    """The packed dispatch (K1p), or the eight-array dispatch (K1t,
+    ``tests/test_parallel.py:134``'s mesh form) on a table with a
+    random-walk schedule, on every rank of a group equal to JAX's
+    single-device and mesh results."""
+    from dentist_tpu.ops.banded import (extend_batch_multi_async,
+                                        extend_batch_packed_async)
     from dentist_tpu.parallel.dp import make_mesh
-    from dentist_tpu_torch.ops.banded import bw_for, extend_batch_packed
+    from dentist_tpu_torch.ops.banded import (bw_for, extend_batch_multi,
+                                              extend_batch_packed)
+    from k1t_tables import walk_table
 
     W, N, R, K = 64, 12, 252, 3
     rng = np.random.default_rng(40 + n)
@@ -78,11 +88,15 @@ def test_sharded_k1p_equals_jax_mesh(n):
     diag_hi = np.full(N, 1 << 20, np.int32)
     diag_hi[::4] = 40
     kw = {"W": W, "diag_hi": diag_hi}
-    single = np.asarray(extend_batch_packed_async(*args, **kw))
-    mesh = np.asarray(extend_batch_packed_async(*args, **kw, mesh=make_mesh(n)))
+    jax_fn, port_fn = extend_batch_packed_async, extend_batch_packed
+    if mode == "K1t":
+        args = (*args[:4], walk_table(n, args[4], R, W), args[5])
+        jax_fn, port_fn = extend_batch_multi_async, extend_batch_multi
+    single = np.asarray(jax_fn(*args, **kw))
+    mesh = np.asarray(jax_fn(*args, **kw, mesh=make_mesh(n)))
     np.testing.assert_array_equal(mesh, single)
     assert (single[0] > 0).any()
-    outs = _ranks(extend_batch_packed, args, kw, n=n)
+    outs = _ranks(port_fn, args, kw, n=n)
     assert [o["rank"] for o in outs] == list(range(n))
     for o in outs:
         np.testing.assert_array_equal(o["result"], single)

@@ -10,6 +10,7 @@ import with JAX blocked).  The JAX package's reference generators
 imports them."""
 
 import importlib
+import json
 import os
 import subprocess
 import sys
@@ -34,7 +35,7 @@ _SCRIPTS = {
 #: the scripts that run the JAX package to write a reference the port is
 #: held to
 _REFERENCES = ("phase_c_reference", "scaffolds_repeats_reference",
-               "bench_reference")
+               "bench_reference", "jax_suite_reference")
 
 
 def _path(name: str) -> str:
@@ -111,3 +112,44 @@ def test_nothing_of_the_port_imports_a_reference_generator(name):
     files += [_path(n) for n in _SCRIPTS] + [os.path.join(ROOT, "chip_smoke.py")]
     for path in files:
         assert name not in _imported_packages(open(path).read()), path
+
+
+def _suite_reference() -> dict:
+    from dentist_tpu_torch.scenarios import SUITE_REFERENCE
+
+    with open(SUITE_REFERENCE) as fh:
+        return json.load(fh)
+
+
+def test_suite_reference_holds_phase_19s_scenarios():
+    """``scripts/jax_suite_reference.json`` holds one entry per scenario
+    ``chip_smoke.py`` phase 19 runs (``suite_plan``), in its order, each
+    with the JAX test it stands for and its digests."""
+    import chip_smoke
+    from dentist_tpu_torch.scenarios import SUITE
+
+    ref = _suite_reference()
+    assert list(ref["scenarios"]) == chip_smoke.suite_plan(ref) == list(SUITE)
+    for key, e in ref["scenarios"].items():
+        assert e["test"] == SUITE[key]
+        hashes = [v for v in e["digests"].values() if isinstance(v, str)]
+        assert hashes and all(len(h) == 64 and int(h, 16) >= 0 for h in hashes)
+    assert set(ref["provenance"]) == {"command", "env", "cpu", "jax", "date"}
+
+
+@pytest.mark.parametrize("fault", ["missing", "extra", "order"])
+def test_phase_19_refuses_another_scenario_list(fault, monkeypatch):
+    import chip_smoke
+
+    ref = _suite_reference()
+    keys = list(ref["scenarios"])
+    if fault == "missing":
+        keys = keys[1:]
+    elif fault == "extra":
+        keys.append("another")
+    else:
+        keys[0], keys[1] = keys[1], keys[0]
+    monkeypatch.setattr(chip_smoke, "fail", lambda msg: (_ for _ in ()).throw(
+        SystemExit(msg)))
+    with pytest.raises(SystemExit, match="the reference holds"):
+        chip_smoke.suite_plan({"scenarios": {k: {} for k in keys}})
