@@ -1,0 +1,11 @@
+"""stage_s.collect: seconds of collecting pile-ups (``stage.collect``) per
+pipeline, from the port's ``STAGE_SECONDS``."""
+
+KEY = "stage.collect"
+
+
+def read(record):
+    vals = [next((v for k, v in u["stages"].items() if k.endswith(KEY)), None)
+            for u in record["units"]]
+    vals = [v for v in vals if v is not None]
+    return sum(vals) / len(vals) if vals else None
