@@ -1930,10 +1930,14 @@ def phase_a(tmp: str) -> dict:
     return launches, sc, rec, wall
 
 
-def consensus_sections(sections: dict) -> dict:
-    """The consensus host sections of the port's ``prof`` counters:
-    name → [seconds, hits, bytes]."""
-    return {k: [round(v[0], 4), v[1], v[2]] for k, v in sorted(sections.items())
+def consensus_sections(recorded: dict) -> dict:
+    """The consensus host spans of one recording of the port's spans
+    (``utils/trace``): name → [seconds, hits, bytes], the bytes from a
+    ``<name>.bytes`` counter where the span has one."""
+    from dentist_tpu_torch.utils import trace
+
+    return {k: [round(v[0], 4), v[1], v[2]]
+            for k, v in trace.sections(recorded).items()
             if k.startswith(("cons.", "process."))}
 
 
@@ -1941,8 +1945,8 @@ def phase_profile(tmp: str, calls: int) -> None:
     """``calls`` more phase-A runs, the last under ``torch.profiler``,
     then one with ``DENTIST_TPU_DENSE_CONS=1``.  The device is busy where
     any kernel or copy runs: the union of their intervals, against the
-    profiled run's wall.  The port's section counters (``utils/prof``)
-    are on for these runs: the consensus host sections of the last
+    profiled run's wall.  The port's spans (``utils/trace``) are
+    recorded for these runs: the consensus host spans of the last
     default call and of the dense call are printed side by side."""
     import contextlib
 
@@ -1950,40 +1954,36 @@ def phase_profile(tmp: str, calls: int) -> None:
 
     from dentist_tpu_torch.device import device_busy
     from dentist_tpu_torch.ops import pack2
-    from dentist_tpu_torch.utils import prof as sections
+    from dentist_tpu_torch.utils import trace
 
     d = os.path.join(tmp, "phase_a")
     asm, reads = (os.path.join(d, f) for f in ("assembly.fasta", "reads.fasta"))
     walls = []
-    sections.ENABLED = True
-    try:
-        for i in range(calls + 1):
-            last = i == calls - 1
-            dense = i == calls
-            pack2.seconds, pack2.calls = 0.0, 0
-            sections._acc.clear()
-            if dense:
-                os.environ["DENTIST_TPU_DENSE_CONS"] = "1"
-            try:
-                with (profile(activities=[ProfilerActivity.CPU,
-                                          ProfilerActivity.CUDA])
-                      if last else contextlib.nullcontext()) as p:
-                    _, out, wall = run_phase_a(d, asm, reads, f"_profile{i}")
-            finally:
-                os.environ.pop("DENTIST_TPU_DENSE_CONS", None)
-            check_hashes(d, os.path.basename(out)[: -len(".fasta")],
-                         PHASE_A_SHA256, f"3 Mb run {i} (dense={dense})")
-            if last:
-                prof, default_sections = p, consensus_sections(sections._acc)
-                default_wall = wall
-                pack_ms, pack_calls = pack2.seconds * 1e3, pack2.calls
-            elif dense:
-                dense_sections, dense_wall = consensus_sections(sections._acc), wall
-            else:
-                walls.append(wall)
-    finally:
-        sections.ENABLED = False
-        sections._acc.clear()
+    for i in range(calls + 1):
+        last = i == calls - 1
+        dense = i == calls
+        pack2.seconds, pack2.calls = 0.0, 0
+        if dense:
+            os.environ["DENTIST_TPU_DENSE_CONS"] = "1"
+        trace.start()
+        try:
+            with (profile(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA])
+                  if last else contextlib.nullcontext()) as p:
+                _, out, wall = run_phase_a(d, asm, reads, f"_profile{i}")
+        finally:
+            recorded = trace.stop()
+            os.environ.pop("DENTIST_TPU_DENSE_CONS", None)
+        check_hashes(d, os.path.basename(out)[: -len(".fasta")],
+                     PHASE_A_SHA256, f"3 Mb run {i} (dense={dense})")
+        if last:
+            prof, default_sections = p, consensus_sections(recorded)
+            default_wall = wall
+            pack_ms, pack_calls = pack2.seconds * 1e3, pack2.calls
+        elif dense:
+            dense_sections, dense_wall = consensus_sections(recorded), wall
+        else:
+            walls.append(wall)
     walls.append(default_wall)
     busy_ms, by_name = device_busy(prof)
     if not by_name:

@@ -38,6 +38,7 @@ import numpy as np
 from ..errors import DEVICE_ERRORS
 from ..io.fasta import reverse_complement
 from ..ops.consensus import consensus_batch, rank_reference_reads
+from ..utils import trace
 from ..utils.log import log_json
 from ..utils.regions import Region
 from .alignments import TRACE_SPACING, LocalAlignmentSet
@@ -475,8 +476,6 @@ def process_pile_ups(
     cfg = cfg or ProcessConfig()
     lo, hi = batch if batch else (0, len(pile_ups))
 
-    from ..utils.prof import prof
-
     prepared: list[_Prepared] = []
     for i in range(lo, min(hi, len(pile_ups))):
         singular_ok = cfg.allow_single_reads and len(pile_ups[i]) == 1
@@ -485,7 +484,7 @@ def process_pile_ups(
                      pileUpId=i, numReads=len(pile_ups[i]))
             continue
         try:
-            with prof("process.prepare"):
+            with trace.span("process.prepare"):
                 prep = _prepare_pile_up(pile_ups[i], ctx, contigs, reads,
                                         repeats, cfg)
         except DEVICE_ERRORS:
@@ -539,7 +538,7 @@ def process_pile_ups(
             if cons is None:
                 continue
             try:
-                with prof("process.splice"):
+                with trace.span("process.splice"):
                     ins = _splice(prepared[k], cons, contigs, cfg)
             except DEVICE_ERRORS:
                 raise

@@ -43,8 +43,8 @@ import torch
 from ..io.fasta import reverse_complement
 from ..models.alignments import TRACE_SPACING, LocalAlignmentSet
 from ..parallel.dp import dispatch_workers, pad_lanes
+from ..utils import trace
 from ..utils.log import log_json
-from ..utils.prof import prof, prof_add
 from .seeding import (KmerIndex, SeedCandidate, cluster_seeds,
                       cluster_seeds_batched)
 
@@ -369,8 +369,9 @@ class Aligner:
         # fragmented flushes
         N = next((lb for lb in _LANE_BUCKETS if len(jobs) <= lb),
                  -(-len(jobs) // _LANE_BUCKETS[-1]) * _LANE_BUCKETS[-1])
-        prof_add(f"map.flush.R{R}.N{N}", hits=len(jobs))
         N = pad_lanes(N, self.group)  # lanes split evenly over the ranks
+        trace.count("k1.lanes_live", len(jobs))
+        trace.count("k1.lanes_launched", N)
         lane_k = np.concatenate([lane_k, np.zeros(N - len(jobs), dtype=np.int32)])
         # window assembly + device dispatch off-thread: the main thread
         # is the clustering bottleneck and the device queue is async
@@ -500,12 +501,13 @@ class Aligner:
 
         from .banded import unpack_extension
 
-        # the fetch is the synchronization point with the device
-        with prof("map.drain.fetch"):
+        # the fetch is the synchronization point with the device (and
+        # with the dispatch pool's window assembly)
+        with trace.span("wait.device"):
             with ThreadPoolExecutor(max_workers=4) as ex:
                 results = list(ex.map(
                     lambda jf: unpack_extension(jf[1].result()), self._inflight))
-        with prof("map.drain.summarize"):
+        with trace.span("map.drain.summarize"):
             for (jobs, _), (r_end, j_end, d_end, s_end, trace_j, trace_d) in zip(
                     self._inflight, results):
                 for n, j in enumerate(jobs):
@@ -584,12 +586,12 @@ class Aligner:
         with ThreadPoolExecutor(max_workers=cfg.seed_threads) as ex:
             futures = [ex.submit(do_chunk, qs, qids) for qs, qids in chunks[:ahead]]
             for ci, (qs, qids) in enumerate(chunks):
-                with prof("map.seedwait"):
+                with trace.span("aligner.seed_wait"):
                     rcs, cands = futures[ci].result()
                 futures[ci] = None
                 if ci + ahead < len(chunks):
                     futures.append(ex.submit(do_chunk, *chunks[ci + ahead]))
-                with prof("map.makejobs"):
+                with trace.span("aligner.make_jobs"):
                     for i, (q, qid) in enumerate(zip(qs, qids)):
                         fwd_c, rev_c = cands[i], cands[len(qs) + i]
                         keep_f, keep_r = _cap_candidates(fwd_c, rev_c,
@@ -606,12 +608,13 @@ class Aligner:
         returns the overflow to ``_pending``, so flush each bucket until it
         is empty — otherwise overflow-bin jobs would be silently dropped.
         """
-        for key in sorted(self._pending):
-            while self._pending.get(key):
-                self._flush_group(key)
+        with trace.span("aligner.make_jobs"):
+            for key in sorted(self._pending):
+                while self._pending.get(key):
+                    self._flush_group(key)
         self._drain()
         self._dispatch_pool.shutdown(wait=False)
-        with prof("map.assemble"):
+        with trace.span("map.assemble"):
             las = _assemble(self._cands, self.cfg)
         self._cands = []
         return las

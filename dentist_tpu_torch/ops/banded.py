@@ -43,6 +43,7 @@ from .. import _build
 from ..device import get_device
 from ..errors import KernelError
 from ..parallel.dp import gather_lanes, local_lanes
+from ..utils import trace
 from .pack2 import pack2bit, unpack2bit
 
 __all__ = ["extend", "extend_reference", "extend_packed",
@@ -155,6 +156,7 @@ class DeviceStore:
             self._reset_locked()
 
     def _reset_locked(self):
+        trace.count("store.resets")
         self.pos = RESIDENT_PAD
         self.keys.clear()
         self.epoch += 1
@@ -210,6 +212,7 @@ def store_write(packed: torch.Tensor, store: torch.Tensor, off: int) -> None:
     n = 4 * packed.numel()
     if off < 0 or off + n > store.numel() or store.numel() >= 1 << 31:
         raise KernelError(f"upload [{off}, {off + n}) outside the store")
+    trace.count("k5.upload_bytes", packed.numel())
     if store.device.type == "cpu":
         store_write_reference(packed, store, off)
         return
@@ -475,6 +478,7 @@ def extend_batch_packed(a_win: np.ndarray, b_win: np.ndarray, a_len, b_len,
     b_win = local_lanes(b_win, group, 0)
     meta5 = np.ascontiguousarray(local_lanes(meta5, group, 1))
     chars = np.concatenate([pack2bit(a_win), pack2bit(b_win)], axis=1)
+    trace.count("k1p.window_bytes", chars.nbytes)
     dev = get_device()
     out = extend_packed(torch.from_numpy(chars).to(dev),
                         torch.from_numpy(meta5).to(dev), num_k, R=R, W=W)

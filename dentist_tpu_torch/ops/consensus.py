@@ -41,7 +41,6 @@ per-read per-window diff counts are the intrinsic-QV signal.
 from __future__ import annotations
 
 import os
-import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
@@ -52,7 +51,7 @@ from ..device import get_device
 from ..errors import KernelError
 from ..models.alignments import TRACE_SPACING
 from ..parallel.dp import dispatch_workers, gather_lanes, local_lanes, pad_lanes
-from ..utils.prof import prof, prof_add
+from ..utils import trace
 from .banded import _ARENA_CHUNK, _RESIDENT_LADDER, RESIDENT_PAD, device_store
 from .nw_dist import nw_dist_pairs_packed
 from .nw_round import nw_round_packed, nw_round_resident
@@ -349,7 +348,7 @@ def _run_round_full(jobs, W: int, group=None) -> list[_RoundOut]:
                                     only_if_better=only_if_better,
                                     fetched=arr)
         if ovf:
-            prof_add("cons.full.ovf_refetch", hits=len(ovf))
+            trace.count("cons.ovf_refetch", len(ovf))
             ovf_lanes = [chunk[k] for k in ovf]
             h2, cen2 = _dispatch_chunk(lanes, ovf_lanes, TB, W,
                                        centers_fn or centers_for,
@@ -358,7 +357,7 @@ def _run_round_full(jobs, W: int, group=None) -> list[_RoundOut]:
                            only_if_better=only_if_better,
                            fetched=_fetch(h2), centers=cen2)
 
-    with prof("cons.full.dispatch"):
+    with trace.span("cons.full.dispatch"):
         # launches serialize in a group: gathers run in the same order on
         # every rank
         with ThreadPoolExecutor(max_workers=dispatch_workers(4)) as ex:
@@ -366,12 +365,12 @@ def _run_round_full(jobs, W: int, group=None) -> list[_RoundOut]:
                 lambda t: _dispatch_chunk(lanes, t[0], t[1], W, centers_for,
                                           group, dense=not use_sparse),
                 plan))
-    with prof("cons.full.fetch"):
+    with trace.span("cons.full.fetch"), trace.span("wait.device"):
         fetched = [_fetch(h) for h, _ in handles]
-    prof_add("cons.full.fetch", nbytes=sum(a.nbytes for a in fetched), hits=0)
+    trace.count("cons.full.fetch.bytes", sum(a.nbytes for a in fetched))
     # the overflow refetch launches (and, in a group, gathers): the pool
     # runs one worker in a group, as the dispatch pool does
-    with prof("cons.full.collect"):
+    with trace.span("cons.full.collect"):
         with ThreadPoolExecutor(max_workers=dispatch_workers(4)) as ex:
             list(ex.map(
                 lambda t: collect(t[0][0], t[0][1], t[2], t[1][1]),
@@ -397,12 +396,13 @@ def _run_round_full(jobs, W: int, group=None) -> list[_RoundOut]:
                             _dispatch_chunk(lanes, retry, TB, W, prop_for,
                                             group, dense=not use_sparse),
                             prop_for))
-    refetched = [_fetch(t[2][0]) for t in retries]
+    with trace.span("wait.device"):
+        refetched = [_fetch(t[2][0]) for t in retries]
     for (retry, TB, (_, cen), pf), arr in zip(retries, refetched):
         collect(retry, TB, arr, cen, only_if_better=True, centers_fn=pf)
 
     # assemble per-job outputs
-    with prof("cons.full.assemble"):
+    with trace.span("cons.full.assemble"):
         results = []
         for ji, job in enumerate(jobs):
             T = len(job.template)
@@ -503,165 +503,159 @@ def _run_round_windowed(jobs, W: int, group=None):
     if res_mode:
         tpl_bases = np.concatenate(
             [[0], np.cumsum([len(j.template) for j in jobs])])[:-1]
-    _t_build = time.perf_counter()
-    for wi, job in enumerate(jobs):
-        template, reads, jp = job.template, job.reads, job.jpath
-        T = len(template)
-        n = len(reads)
-        nwin = -(-T // _ADV)
-        valid = jp >= 0
-        nvalid = valid.sum(axis=1)
-        s = np.argmax(valid, axis=1)
-        e = T - np.argmax(valid[:, ::-1], axis=1)  # last valid boundary
-        ok_read = nvalid >= 2
-        if job.dirty is None:
-            for ri in np.flatnonzero(~ok_read):
-                failures.append((wi, int(ri)))
-        k = np.arange(nwin)
-        i0 = k * _ADV
-        kend = np.minimum(i0 + _ADV, T)
-        b0 = np.maximum(i0 - _MARGIN, 0)
-        b1 = np.minimum(i0 + _ADV + _MARGIN, T)
-        rel = (ok_read[:, None] & (i0[None, :] < e[:, None])
-               & (kend[None, :] > s[:, None]))
-        if job.dirty is not None:
-            cumd = np.concatenate([[0], np.cumsum(job.dirty)])
-            rel &= (cumd[b1] - cumd[b0] > 0)[None, :]
-        lo_b = np.maximum(b0[None, :], s[:, None])
-        hi_b = np.minimum(b1[None, :], e[:, None])
-        jlo = np.take_along_axis(jp, np.clip(lo_b, 0, T), axis=1)
-        jhi = np.take_along_axis(jp, np.clip(hi_b, 0, T), axis=1)
-        rel &= (jlo >= 0) & (jhi > jlo)
-        rr, kk = np.nonzero(rel)
-        L = len(rr)
-        if L == 0:
-            per_job.append(None)
-            continue
-        jl = np.maximum(jlo[rr, kk] - _LEAD_SLACK, 0)
-        jl = np.maximum(jl, jhi[rr, kk] - _SEG)
-        seg_len = jhi[rr, kk] - jl
-        t_len = (b1 - b0)[kk]
-        tidx = b0[kk][:, None] + np.arange(_WS)[None, :]
-        tmask = tidx < b1[kk][:, None]
-        lane_tpl.append(np.where(
-            tmask, template[np.minimum(tidx, max(T - 1, 0))], 0).astype(np.uint8))
-        if res_mode:
-            lane_tstart.append(tpl_bases[wi] + b0[kk])
-            lane_sstart.append(job.read_offs[rr] + jl)
-        else:
-            reads_arr = job.reads_u8()
-            RL = reads_arr.shape[1]
-            sidx = jl[:, None] + np.arange(_SEG)[None, :]
-            smask = np.arange(_SEG)[None, :] < seg_len[:, None]
-            lane_seg.append(np.where(
-                smask, reads_arr[rr[:, None], np.minimum(sidx, RL - 1)], 0))
-        lane_tlen.append(t_len)
-        lane_seglen.append(seg_len)
-        lane_loc0.append((i0 - b0)[kk])
-        per_job.append((rr, kk, i0, kend, b0, b1, jl, total))
-        total += L
-
-    prof_add("cons.win.build", time.perf_counter() - _t_build,
-             hits=len(jobs))
+    with trace.span("cons.win.build"):
+        for wi, job in enumerate(jobs):
+            template, reads, jp = job.template, job.reads, job.jpath
+            T = len(template)
+            n = len(reads)
+            nwin = -(-T // _ADV)
+            valid = jp >= 0
+            nvalid = valid.sum(axis=1)
+            s = np.argmax(valid, axis=1)
+            e = T - np.argmax(valid[:, ::-1], axis=1)  # last valid boundary
+            ok_read = nvalid >= 2
+            if job.dirty is None:
+                for ri in np.flatnonzero(~ok_read):
+                    failures.append((wi, int(ri)))
+            k = np.arange(nwin)
+            i0 = k * _ADV
+            kend = np.minimum(i0 + _ADV, T)
+            b0 = np.maximum(i0 - _MARGIN, 0)
+            b1 = np.minimum(i0 + _ADV + _MARGIN, T)
+            rel = (ok_read[:, None] & (i0[None, :] < e[:, None])
+                   & (kend[None, :] > s[:, None]))
+            if job.dirty is not None:
+                cumd = np.concatenate([[0], np.cumsum(job.dirty)])
+                rel &= (cumd[b1] - cumd[b0] > 0)[None, :]
+            lo_b = np.maximum(b0[None, :], s[:, None])
+            hi_b = np.minimum(b1[None, :], e[:, None])
+            jlo = np.take_along_axis(jp, np.clip(lo_b, 0, T), axis=1)
+            jhi = np.take_along_axis(jp, np.clip(hi_b, 0, T), axis=1)
+            rel &= (jlo >= 0) & (jhi > jlo)
+            rr, kk = np.nonzero(rel)
+            L = len(rr)
+            if L == 0:
+                per_job.append(None)
+                continue
+            jl = np.maximum(jlo[rr, kk] - _LEAD_SLACK, 0)
+            jl = np.maximum(jl, jhi[rr, kk] - _SEG)
+            seg_len = jhi[rr, kk] - jl
+            t_len = (b1 - b0)[kk]
+            tidx = b0[kk][:, None] + np.arange(_WS)[None, :]
+            tmask = tidx < b1[kk][:, None]
+            lane_tpl.append(np.where(
+                tmask, template[np.minimum(tidx, max(T - 1, 0))], 0).astype(np.uint8))
+            if res_mode:
+                lane_tstart.append(tpl_bases[wi] + b0[kk])
+                lane_sstart.append(job.read_offs[rr] + jl)
+            else:
+                reads_arr = job.reads_u8()
+                RL = reads_arr.shape[1]
+                sidx = jl[:, None] + np.arange(_SEG)[None, :]
+                smask = np.arange(_SEG)[None, :] < seg_len[:, None]
+                lane_seg.append(np.where(
+                    smask, reads_arr[rr[:, None], np.minimum(sidx, RL - 1)], 0))
+            lane_tlen.append(t_len)
+            lane_seglen.append(seg_len)
+            lane_loc0.append((i0 - b0)[kk])
+            per_job.append((rr, kk, i0, kend, b0, b1, jl, total))
+            total += L
     resident = None
     if res_mode:
         resident = (jobs[0].seg_res,
                     np.concatenate([j.template for j in jobs])
                     if jobs else np.zeros(0, np.uint8),
                     lane_tstart, lane_sstart)
-    with prof("cons.win.dispatch+fetch"):  # bytes: see cons.win.fetch
+    with trace.span("cons.win.dispatch+fetch"):
         fetched = _dispatch_windowed_lanes(
             lane_tpl, lane_tlen, lane_seg, lane_seglen, lane_loc0, total, W,
             group, resident=resident)
-    prof_add("cons.win.lanes", hits=total)
+    trace.count("cons.win.lanes", total)
 
-    _t_stitch = time.perf_counter()
-
-    def stitch_one(wi):
-        job = jobs[wi]
-        template, reads = job.template, job.reads
-        T = len(template)
-        n = len(reads)
-        NWIN = max(TB_nwin(T), 1)
-        incremental = job.dirty is not None and job.prev is not None
-        if incremental:
-            sym_g = job.prev.sym.copy()
-            ins_g = job.prev.ins.copy()
-            jp_g = job.prev.jpath.copy()
-            fresh_cols = np.zeros(T, dtype=bool)
-            fresh_bnds = np.zeros(T + 1, dtype=bool)
-        else:
-            sym_g = np.full((n, T), 5, np.int8)
-            ins_g = np.zeros((n, T + 1, 4), np.int8)
-            jp_g = np.full((n, T + 1), -1, np.int64)
-            fresh_cols = fresh_bnds = None
-        meta = per_job[wi]
-        if meta is not None:
-            rr, kk, i0, kend, b0, b1, jl, off = meta
-            L = len(rr)
-            sym_l, ins_l, jpath_l = (fetched[0][off : off + L],
-                                     fetched[1][off : off + L],
-                                     fetched[2][off : off + L])
-            # lane arrays are interior-only (device-side extraction):
-            # column c of sym_l is global column i0 + c
-            cols = i0[kk][:, None] + np.arange(_ADV)[None, :]
-            cmask = cols < kend[kk][:, None]
-            ccols = np.minimum(cols, T - 1)  # safe pre-mask (cmask ⇒ < T)
-            flat_cols = (rr[:, None] * T + ccols)[cmask]
-            flat_bnds = (rr[:, None] * (T + 1) + ccols)[cmask]
-            sym_g.reshape(-1)[flat_cols] = sym_l[cmask]
-            jvals = np.where(jpath_l >= 0, jpath_l + jl[:, None], -1)
-            jp_g.reshape(-1)[flat_bnds] = jvals[:, :_ADV][cmask]
-            ins_g.reshape(n * (T + 1), 4)[flat_bnds] = ins_l[:, :_ADV][cmask]
-            # final boundary T comes from the last window's interior end
-            last = kend[kk] == T
-            if last.any():
-                wid = (kend - i0)[kk][last]
-                lanes_last = np.flatnonzero(last)
-                jp_g[rr[last], T] = jvals[lanes_last, wid]
-                ins_g[rr[last], T] = ins_l[lanes_last, wid]
+    with trace.span("cons.win.stitch"):
+        def stitch_one(wi):
+            job = jobs[wi]
+            template, reads = job.template, job.reads
+            T = len(template)
+            n = len(reads)
+            NWIN = max(TB_nwin(T), 1)
+            incremental = job.dirty is not None and job.prev is not None
             if incremental:
-                wk = np.unique(kk)
-                for k_ in wk:
-                    fresh_cols[i0[k_] : kend[k_]] = True
-                    fresh_bnds[i0[k_] : kend[k_] + (kend[k_] == T)] = True
-        # derived per-read statistics from the stitched columns
-        tplv = template[None, :T]
-        mism = (sym_g < 4) & (sym_g != tplv)
-        dele = sym_g == 4
-        contrib_col = mism.astype(np.int64) + dele
-        ins_cnt = (ins_g != 0).sum(axis=2).astype(np.int64)
-        bounds = np.arange(0, max(T, 1), TRACE_SPACING)[:NWIN]
-        win_cols = np.add.reduceat(contrib_col, bounds, axis=1) if T else \
-            np.zeros((n, NWIN), np.int64)
-        win_ins = np.add.reduceat(ins_cnt[:, : T + 1], bounds, axis=1)
-        win = (win_cols + win_ins).astype(np.int32)
-        diffs = contrib_col.sum(axis=1) + ins_cnt.sum(axis=1)
-        covered_cols = sym_g != 5
-        covered = covered_cols.any(axis=1)
-        first = np.argmax(covered_cols, axis=1)
-        last_c = T - np.argmax(covered_cols[:, ::-1], axis=1)
-        spans = np.stack([np.where(covered, first, 0),
-                          np.where(covered, last_c, 0)], axis=1)
-        fails = []
-        # defensively retry reads whose windows all failed to stitch
-        if meta is not None and job.dirty is None:
-            for ri in np.flatnonzero(~covered):
-                if (wi, int(ri)) not in failures and len(reads[ri]):
-                    fails.append((wi, int(ri)))
-        return _RoundOut(sym_g, ins_g, jp_g, spans,
-                         np.where(covered, diffs, 0), win, covered,
-                         fresh_cols, fresh_bnds), fails
+                sym_g = job.prev.sym.copy()
+                ins_g = job.prev.ins.copy()
+                jp_g = job.prev.jpath.copy()
+                fresh_cols = np.zeros(T, dtype=bool)
+                fresh_bnds = np.zeros(T + 1, dtype=bool)
+            else:
+                sym_g = np.full((n, T), 5, np.int8)
+                ins_g = np.zeros((n, T + 1, 4), np.int8)
+                jp_g = np.full((n, T + 1), -1, np.int64)
+                fresh_cols = fresh_bnds = None
+            meta = per_job[wi]
+            if meta is not None:
+                rr, kk, i0, kend, b0, b1, jl, off = meta
+                L = len(rr)
+                sym_l, ins_l, jpath_l = (fetched[0][off : off + L],
+                                         fetched[1][off : off + L],
+                                         fetched[2][off : off + L])
+                # lane arrays are interior-only (device-side extraction):
+                # column c of sym_l is global column i0 + c
+                cols = i0[kk][:, None] + np.arange(_ADV)[None, :]
+                cmask = cols < kend[kk][:, None]
+                ccols = np.minimum(cols, T - 1)  # safe pre-mask (cmask ⇒ < T)
+                flat_cols = (rr[:, None] * T + ccols)[cmask]
+                flat_bnds = (rr[:, None] * (T + 1) + ccols)[cmask]
+                sym_g.reshape(-1)[flat_cols] = sym_l[cmask]
+                jvals = np.where(jpath_l >= 0, jpath_l + jl[:, None], -1)
+                jp_g.reshape(-1)[flat_bnds] = jvals[:, :_ADV][cmask]
+                ins_g.reshape(n * (T + 1), 4)[flat_bnds] = ins_l[:, :_ADV][cmask]
+                # final boundary T comes from the last window's interior end
+                last = kend[kk] == T
+                if last.any():
+                    wid = (kend - i0)[kk][last]
+                    lanes_last = np.flatnonzero(last)
+                    jp_g[rr[last], T] = jvals[lanes_last, wid]
+                    ins_g[rr[last], T] = ins_l[lanes_last, wid]
+                if incremental:
+                    wk = np.unique(kk)
+                    for k_ in wk:
+                        fresh_cols[i0[k_] : kend[k_]] = True
+                        fresh_bnds[i0[k_] : kend[k_] + (kend[k_] == T)] = True
+            # derived per-read statistics from the stitched columns
+            tplv = template[None, :T]
+            mism = (sym_g < 4) & (sym_g != tplv)
+            dele = sym_g == 4
+            contrib_col = mism.astype(np.int64) + dele
+            ins_cnt = (ins_g != 0).sum(axis=2).astype(np.int64)
+            bounds = np.arange(0, max(T, 1), TRACE_SPACING)[:NWIN]
+            win_cols = np.add.reduceat(contrib_col, bounds, axis=1) if T else \
+                np.zeros((n, NWIN), np.int64)
+            win_ins = np.add.reduceat(ins_cnt[:, : T + 1], bounds, axis=1)
+            win = (win_cols + win_ins).astype(np.int32)
+            diffs = contrib_col.sum(axis=1) + ins_cnt.sum(axis=1)
+            covered_cols = sym_g != 5
+            covered = covered_cols.any(axis=1)
+            first = np.argmax(covered_cols, axis=1)
+            last_c = T - np.argmax(covered_cols[:, ::-1], axis=1)
+            spans = np.stack([np.where(covered, first, 0),
+                              np.where(covered, last_c, 0)], axis=1)
+            fails = []
+            # defensively retry reads whose windows all failed to stitch
+            if meta is not None and job.dirty is None:
+                for ri in np.flatnonzero(~covered):
+                    if (wi, int(ri)) not in failures and len(reads[ri]):
+                        fails.append((wi, int(ri)))
+            return _RoundOut(sym_g, ins_g, jp_g, spans,
+                             np.where(covered, diffs, 0), win, covered,
+                             fresh_cols, fresh_bnds), fails
 
-    # per-job stitching is independent numpy; thread it (serial, it was
-    # ~10 s at 147-pile-up scale on a 4-core host)
-    with ThreadPoolExecutor(max_workers=4) as ex:
-        stitched = list(ex.map(stitch_one, range(len(jobs))))
-    outs = [s[0] for s in stitched]
-    for _, fails in stitched:
-        failures.extend(fails)
-    prof_add("cons.win.stitch", time.perf_counter() - _t_stitch,
-             hits=len(jobs))
+        # per-job stitching is independent numpy; thread it (serial, it was
+        # ~10 s at 147-pile-up scale on a 4-core host)
+        with ThreadPoolExecutor(max_workers=4) as ex:
+            stitched = list(ex.map(stitch_one, range(len(jobs))))
+        outs = [s[0] for s in stitched]
+        for _, fails in stitched:
+            failures.extend(fails)
     return outs, failures
 
 
@@ -770,12 +764,12 @@ def _dispatch_windowed_lanes(lane_tpl, lane_tlen, lane_seg, lane_seglen,
 
     plan = [np.arange(c0, min(c0 + _WCHUNK, total))
             for c0 in range(0, total, _WCHUNK)]
-    with prof("cons.win.enqueue"):
+    with trace.span("cons.win.enqueue"):
         with ThreadPoolExecutor(max_workers=dispatch_workers(4)) as ex:
             handles = list(ex.map(dispatch, plan))
-    with prof("cons.win.fetch"):
+    with trace.span("cons.win.fetch"), trace.span("wait.device"):
         arrs = [_fetch(h) for h in handles]
-    prof_add("cons.win.fetch", nbytes=sum(a.nbytes for a in arrs), hits=0)
+    trace.count("cons.win.fetch.bytes", sum(a.nbytes for a in arrs))
     bnd = np.arange(_ADV + 1, dtype=np.int64)[None, :]
     intr = np.arange(_ADV, dtype=np.int64)[None, :]
 
@@ -803,20 +797,23 @@ def _dispatch_windowed_lanes(lane_tpl, lane_tlen, lane_seg, lane_seglen,
         jp_all[sel] = jp
 
     # decode on a pool: numpy's unpack/cumsum passes release the GIL
-    with prof("cons.win.decode"):
+    with trace.span("cons.win.decode"):
         with ThreadPoolExecutor(max_workers=4) as ex:
             list(ex.map(decode_one, zip(plan, arrs)))
     if ovf_idx:
         # cap-overflow lanes (error-dense windows): exact dense refetch
         # of just those lanes
-        prof_add("cons.win.ovf_refetch", hits=len(ovf_idx))
+        trace.count("cons.ovf_refetch", len(ovf_idx))
         # sorted: the decode pool accumulates in completion order, but
         # refetch chunk composition must be deterministic (in a group
         # every rank gathers these chunks)
         allsel = np.asarray(sorted(ovf_idx), dtype=np.int64)
         for c0 in range(0, len(allsel), _WCHUNK):
             sub = allsel[c0 : c0 + _WCHUNK]
-            sym, ins, jp = decode_dense(sub, _fetch(dispatch(sub, dense=True)))
+            handle = dispatch(sub, dense=True)
+            with trace.span("wait.device"):
+                packed = _fetch(handle)
+            sym, ins, jp = decode_dense(sub, packed)
             sym_all[sub] = sym
             ins_all[sub] = ins
             jp_all[sub] = jp
@@ -891,7 +888,7 @@ def _votes_of(out: _RoundOut, T: int):
     if T == 0 or n == 0:
         return (np.zeros((T, 5), np.int32), np.zeros((T + 1, 4, 4), np.int32),
                 np.zeros(T, np.int32))
-    with prof("cons.votes"):
+    with trace.span("cons.votes"):
         onehot = out.sym[:, :, None] == np.arange(5, dtype=np.int8)[None, None, :]
         col_votes = onehot.sum(axis=0).astype(np.int32)
         ins_votes = (out.ins[:, :, :, None]
@@ -1081,49 +1078,46 @@ def _window_gains_multi(groups, W_score: int = 16, HALF: int = 16,
 
     inflight = []
     dev = get_device()
-    _t_g = time.perf_counter()
-    for NB, gidx in by_nb.items():
-        # per-group window assembly is independent numpy; thread it
-        # (the serial loop was ~10 s/run at 147-pile-up scale)
-        with ThreadPoolExecutor(max_workers=4) as ex:
-            parts = list(ex.map(
-                lambda gi: _assemble_gain_group(*groups[gi][:6], NB, HALF,
-                                                RW, TW), gidx))
-        WIN = np.concatenate([p[0] for p in parts])
-        WLEN = np.concatenate([p[1] for p in parts])
-        EWIN = np.concatenate([p[2] for p in parts])
-        ELEN = np.concatenate([p[3] for p in parts])
-        SEG = np.concatenate([p[4] for p in parts])
-        SLEN = np.concatenate([p[5] for p in parts])
-        OK = np.concatenate([p[6] for p in parts])
-        # flat output positions of this class's candidates
-        dst = np.concatenate([np.arange(offsets[gi], offsets[gi + 1])
-                              for gi in gidx])
-        Ktot = len(WIN)
-        for c0 in range(0, Ktot, _V_MAX // 2):
-            n_chunk = min(_V_MAX // 2, Ktot - c0)
-            # two V widths only (see _V_SMALL); non-power-of-2 groups pad
-            V = pad_lanes(_V_SMALL // 2 if n_chunk <= _V_SMALL // 2
-                          else _V_MAX // 2, group)
-            buf = np.zeros((V, 2 * TWp + NB * RW), dtype=np.uint8)
-            meta = np.zeros((V, 2 + NB), dtype=np.int32)
-            sl = slice(c0, c0 + n_chunk)
-            buf[:n_chunk, :TW] = WIN[sl]
-            buf[:n_chunk, TWp : TWp + TW] = EWIN[sl]
-            buf[:n_chunk, 2 * TWp :] = SEG[sl].reshape(n_chunk, NB * RW)
-            meta[:n_chunk, 0] = WLEN[sl]
-            meta[:n_chunk, 1] = ELEN[sl]
-            meta[:n_chunk, 2:] = SLEN[sl]
-            out = nw_dist_pairs_packed(
-                torch.from_numpy(pack2bit(local_lanes(buf, group, 0))).to(dev),
-                torch.from_numpy(local_lanes(meta, group, 0)).to(dev),
-                TW=TW, TWp=TWp, RW=RW, NB=NB)
-            out = gather_lanes(out, group, 1)
-            inflight.append((dst[sl], OK[sl], n_chunk, out))
-
-    prof_add("cons.gains.assemble+enqueue",
-             time.perf_counter() - _t_g)
-    with prof("cons.gains.fetch"):
+    with trace.span("cons.gains.assemble+enqueue"):
+        for NB, gidx in by_nb.items():
+            # per-group window assembly is independent numpy; thread it
+            # (the serial loop was ~10 s/run at 147-pile-up scale)
+            with ThreadPoolExecutor(max_workers=4) as ex:
+                parts = list(ex.map(
+                    lambda gi: _assemble_gain_group(*groups[gi][:6], NB, HALF,
+                                                    RW, TW), gidx))
+            WIN = np.concatenate([p[0] for p in parts])
+            WLEN = np.concatenate([p[1] for p in parts])
+            EWIN = np.concatenate([p[2] for p in parts])
+            ELEN = np.concatenate([p[3] for p in parts])
+            SEG = np.concatenate([p[4] for p in parts])
+            SLEN = np.concatenate([p[5] for p in parts])
+            OK = np.concatenate([p[6] for p in parts])
+            # flat output positions of this class's candidates
+            dst = np.concatenate([np.arange(offsets[gi], offsets[gi + 1])
+                                  for gi in gidx])
+            Ktot = len(WIN)
+            for c0 in range(0, Ktot, _V_MAX // 2):
+                n_chunk = min(_V_MAX // 2, Ktot - c0)
+                # two V widths only (see _V_SMALL); non-power-of-2 groups pad
+                V = pad_lanes(_V_SMALL // 2 if n_chunk <= _V_SMALL // 2
+                              else _V_MAX // 2, group)
+                buf = np.zeros((V, 2 * TWp + NB * RW), dtype=np.uint8)
+                meta = np.zeros((V, 2 + NB), dtype=np.int32)
+                sl = slice(c0, c0 + n_chunk)
+                buf[:n_chunk, :TW] = WIN[sl]
+                buf[:n_chunk, TWp : TWp + TW] = EWIN[sl]
+                buf[:n_chunk, 2 * TWp :] = SEG[sl].reshape(n_chunk, NB * RW)
+                meta[:n_chunk, 0] = WLEN[sl]
+                meta[:n_chunk, 1] = ELEN[sl]
+                meta[:n_chunk, 2:] = SLEN[sl]
+                out = nw_dist_pairs_packed(
+                    torch.from_numpy(pack2bit(local_lanes(buf, group, 0))).to(dev),
+                    torch.from_numpy(local_lanes(meta, group, 0)).to(dev),
+                    TW=TW, TWp=TWp, RW=RW, NB=NB)
+                out = gather_lanes(out, group, 1)
+                inflight.append((dst[sl], OK[sl], n_chunk, out))
+    with trace.span("cons.gains.fetch"), trace.span("wait.device"):
         fetched = [t[3].cpu().numpy() for t in inflight]
     for (dst_c, ok_c, n_chunk, _out), dist in zip(inflight, fetched):
         db = dist[0, :n_chunk]
@@ -1314,7 +1308,7 @@ def _polish_batch(states, read_sets, W: int, max_rounds: int = 8,
         # ---- candidates; score only cache misses (exact window gains)
         per_cands: dict[int, list] = {}
         groups, group_meta = [], []
-        with prof("cons.polish.candidates"):
+        with trace.span("cons.polish.candidates"):
             for p in active:
                 cv, iv, cov = votes[p]
                 cands = _candidates_from_votes(cv, iv, cov,
@@ -1340,68 +1334,66 @@ def _polish_batch(states, read_sets, W: int, max_rounds: int = 8,
         edited: list[int] = []
         next_active: list[int] = []
         dirty_now: dict[int, np.ndarray] = {}
-        _t_apply = time.perf_counter()
-        for p in active:
-            mine = sorted(((caches[p][c], c) for c in per_cands[p]),
-                          key=lambda x: -x[0])
-            chosen, taken_pos = [], []
-            for g, (pos, kind, base) in mine:
-                # Ties (g == 0) fall to the error-profile tilt: when the
-                # exact objective cannot decide between "extra base is
-                # real" and "extra base is k coinciding read insertions",
-                # the profile's dominant error kind picks the likelier
-                # explanation (see tie_policy in the docstring).
-                if g < 0 or (g == 0 and kind != tie_kind):
+        with trace.span("cons.polish.apply"):
+            for p in active:
+                mine = sorted(((caches[p][c], c) for c in per_cands[p]),
+                              key=lambda x: -x[0])
+                chosen, taken_pos = [], []
+                for g, (pos, kind, base) in mine:
+                    # Ties (g == 0) fall to the error-profile tilt: when the
+                    # exact objective cannot decide between "extra base is
+                    # real" and "extra base is k coinciding read insertions",
+                    # the profile's dominant error kind picks the likelier
+                    # explanation (see tie_policy in the docstring).
+                    if g < 0 or (g == 0 and kind != tie_kind):
+                        continue
+                    if all(abs(pos - q) > 2 * HALF for q in taken_pos):
+                        chosen.append((pos, kind, base))
+                        taken_pos.append(pos)
+                if not chosen:
+                    if floors[p] > 2:  # converged at floor 3: refine at 2
+                        floors[p] = 2
+                        next_active.append(p)
                     continue
-                if all(abs(pos - q) > 2 * HALF for q in taken_pos):
-                    chosen.append((pos, kind, base))
-                    taken_pos.append(pos)
-            if not chosen:
-                if floors[p] > 2:  # converged at floor 3: refine at 2
-                    floors[p] = 2
-                    next_active.append(p)
-                continue
-            st = states[p]
-            T_old = len(st["template"])
-            dirty_old = np.zeros(T_old, dtype=bool)
-            for pos, _kind, _base in chosen:
-                dirty_old[max(pos - _EDIT_PAD, 0)
-                          : min(pos + _EDIT_PAD + 1, T_old)] = True
-            new_template, src_bnd, src_col = _apply_edits(st["template"], chosen)
-            T_new = len(new_template)
-            sc = np.maximum(src_col, 0)
-            st["template"] = new_template
-            st["last_out"] = _remap_out(st["last_out"], src_bnd, src_col)
-            st["jpath"] = st["last_out"].jpath
-            st["stats_stale"] = True
-            dirty_new = np.where(src_col >= 0, dirty_old[sc], True)
-            dirty_now[p] = dirty_new
-            # votes follow the column map (dirty rows refresh post-realign)
-            cv, iv, cov = votes[p]
-            votes[p] = [
-                np.where((src_col >= 0)[:, None], cv[sc], 0).astype(np.int32),
-                iv[src_bnd],
-                np.where(src_col >= 0, cov[sc], 0).astype(np.int32),
-            ]
-            # cached gains follow the position maps; anything near an
-            # edit is invalidated (template content + paths change there)
-            invalid = _dilate_mask(dirty_new, HALF + 1)
-            new_of_col = np.full(T_old, -1, dtype=np.int64)
-            m = src_col >= 0
-            new_of_col[src_col[m]] = np.flatnonzero(m)
-            new_of_bnd = np.full(T_old + 1, -1, dtype=np.int64)
-            new_of_bnd[src_bnd] = np.arange(T_new + 1)
-            cache_new = {}
-            for (pos, kind, base), g in caches[p].items():
-                np_ = (new_of_bnd[pos] if kind == 1
-                       else (new_of_col[pos] if pos < T_old else -1))
-                if np_ >= 0 and not invalid[min(np_, T_new - 1)]:
-                    cache_new[(int(np_), kind, base)] = g
-            caches[p] = cache_new
-            edited.append(p)
-            next_active.append(p)
-        prof_add("cons.polish.apply",
-                 time.perf_counter() - _t_apply)
+                st = states[p]
+                T_old = len(st["template"])
+                dirty_old = np.zeros(T_old, dtype=bool)
+                for pos, _kind, _base in chosen:
+                    dirty_old[max(pos - _EDIT_PAD, 0)
+                              : min(pos + _EDIT_PAD + 1, T_old)] = True
+                new_template, src_bnd, src_col = _apply_edits(st["template"], chosen)
+                T_new = len(new_template)
+                sc = np.maximum(src_col, 0)
+                st["template"] = new_template
+                st["last_out"] = _remap_out(st["last_out"], src_bnd, src_col)
+                st["jpath"] = st["last_out"].jpath
+                st["stats_stale"] = True
+                dirty_new = np.where(src_col >= 0, dirty_old[sc], True)
+                dirty_now[p] = dirty_new
+                # votes follow the column map (dirty rows refresh post-realign)
+                cv, iv, cov = votes[p]
+                votes[p] = [
+                    np.where((src_col >= 0)[:, None], cv[sc], 0).astype(np.int32),
+                    iv[src_bnd],
+                    np.where(src_col >= 0, cov[sc], 0).astype(np.int32),
+                ]
+                # cached gains follow the position maps; anything near an
+                # edit is invalidated (template content + paths change there)
+                invalid = _dilate_mask(dirty_new, HALF + 1)
+                new_of_col = np.full(T_old, -1, dtype=np.int64)
+                m = src_col >= 0
+                new_of_col[src_col[m]] = np.flatnonzero(m)
+                new_of_bnd = np.full(T_old + 1, -1, dtype=np.int64)
+                new_of_bnd[src_bnd] = np.arange(T_new + 1)
+                cache_new = {}
+                for (pos, kind, base), g in caches[p].items():
+                    np_ = (new_of_bnd[pos] if kind == 1
+                           else (new_of_col[pos] if pos < T_old else -1))
+                    if np_ >= 0 and not invalid[min(np_, T_new - 1)]:
+                        cache_new[(int(np_), kind, base)] = g
+                caches[p] = cache_new
+                edited.append(p)
+                next_active.append(p)
 
         # ---- realign only the windows the edits touched
         if edited:

@@ -27,6 +27,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from ..models.alignments import LocalAlignmentSet
+from ..utils import trace
 from ..utils.log import log_json
 from .aligner import AlignerConfig, align_store_pair
 from .chain import Chain, ChainingOptions, chain_local_alignments
@@ -68,16 +69,14 @@ def map_reads(
     ``group`` splits extension dispatches over data-parallel ranks (see
     :func:`~.aligner.align_store_pair`).
     """
-    from ..utils.prof import prof
-
     cfg = config or MapperConfig()
-    with prof("map.align"):
+    with trace.span("map.align"):
         las = align_store_pair(
             target_codes, target_offsets, target_lengths, reads, read_ids,
             config=cfg.aligner, mask_intervals=mask_intervals,
             query_store=query_store, group=group,
         )
-    with prof("map.chain"):
+    with trace.span("map.chain"):
         all_chains, las = chain_local_alignments(las, cfg.chaining)
     if not all_chains:
         return las.select(np.zeros(len(las), dtype=bool)), []

@@ -61,8 +61,9 @@ from .models.validate import ValidateConfig, validate_regions
 from .ops.aligner import AlignerConfig, align_store_pair
 from .ops.mapper import MapperConfig, map_reads
 from .parallel.dp import barrier, default_group
+from .utils import trace
 from .utils.log import (STAGE_SECONDS, log_json,  # noqa: F401
-                        reset_stage_seconds, trace_execution)
+                        reset_stage_seconds)
 from .utils.regions import Region
 
 
@@ -111,7 +112,7 @@ class PipelineConfig:
     resume: bool = True
 
 
-@trace_execution
+@trace.pipeline(env=trace.TRACE_ENV)
 def run_pipeline(assembly_path, reads_path, out_path, cfg: PipelineConfig | None = None):
     cfg = cfg or PipelineConfig()
     writer = _is_writer(default_group())
@@ -120,9 +121,10 @@ def run_pipeline(assembly_path, reads_path, out_path, cfg: PipelineConfig | None
 
         os.makedirs(cfg.workdir, exist_ok=True)
         tee_log_file(os.path.join(cfg.workdir, "pipeline.log"))
-    contigs, structure = load_assembly(assembly_path)
-    reads = load_reads(reads_path)
-    read_list = [reads.get(i + 1) for i in range(len(reads))]
+    with trace.span("io.parse"):
+        contigs, structure = load_assembly(assembly_path)
+        reads = load_reads(reads_path)
+        read_list = [reads.get(i + 1) for i in range(len(reads))]
     if cfg.read_coverage is None:
         cfg.read_coverage = reads.total_length / max(contigs.total_length, 1)
         log_json("info", event="derivedReadCoverage", coverage=round(cfg.read_coverage, 2))
@@ -143,7 +145,7 @@ def _is_writer(group) -> bool:
     return group is None or group.rank == 0
 
 
-@trace_execution
+@trace.span
 def masks_for(contigs: SeqStore, read_list, cfg: PipelineConfig,
               reads_store: SeqStore | None = None):
     """Stages 1-3: dust, tandem, self-repeat, reads-repeat, homogenized.
@@ -156,12 +158,12 @@ def masks_for(contigs: SeqStore, read_list, cfg: PipelineConfig,
     # dust is host-CPU, tandem is device-bound: true overlap
     from concurrent.futures import ThreadPoolExecutor
 
-    with trace_execution("masks.dust+tandem"):
+    with trace.span("masks.dust+tandem"):
         with ThreadPoolExecutor(max_workers=2) as ex:
             tan_f = ex.submit(tandem_mask, c, o, l)
             dust = dust_mask(c, o, l)
             tan = tan_f.result()
-    with trace_execution("masks.selfAlignment"):
+    with trace.span("masks.selfAlignment"):
         # stride-4 seeding: repeat discovery needs ~tens of seeds/kb at
         # ≥500 bp / ≤30 % divergence, which stride 4 retains with 4×
         # headroom (k=14 at 15 % divergence still yields ~25 seeds/kb);
@@ -176,7 +178,7 @@ def masks_for(contigs: SeqStore, read_list, cfg: PipelineConfig,
     self_mask = coverage_mask(pack_chain_intervals(self_las), l, 0, cfg.max_coverage_self)
     repeats = self_mask | tan
 
-    with trace_execution("masks.mapReads"):
+    with trace.span("masks.mapReads"):
         las, chains = map_reads(
             c, o, l, read_list, config=MapperConfig(),
             mask_intervals=(dust | repeats).iv,
@@ -204,14 +206,14 @@ def masks_for(contigs: SeqStore, read_list, cfg: PipelineConfig,
     repeats = repeats | reads_mask | improper_mask
 
     # homogenization round trip (mask-H): assembly → reads → assembly
-    with trace_execution("masks.homogenize"):
+    with trace.span("masks.homogenize"):
         on_reads = propagate_mask(repeats, las, read_lengths)
         homogenized = repeats | propagate_mask_b_to_a(on_reads, las, l,
                                                       read_lengths)
     return dust, repeats, homogenized, las, chains
 
 
-@trace_execution
+@trace.pipeline
 def close_gaps(contigs, structure, reads: SeqStore, read_list, cfg: PipelineConfig):
     resume = _ResumeState(cfg, contigs, reads, structure, default_group())
     loaded = resume.load_masks()
@@ -234,14 +236,14 @@ def close_gaps(contigs, structure, reads: SeqStore, read_list, cfg: PipelineConf
     )
     pile_ups = resume.load_pile_ups()
     if pile_ups is None:
-        with trace_execution("stage.collect"):
+        with trace.span("stage.collect"):
             pile_ups = collect_pile_ups(ctx, structure.gaps, homogenized,
                                         collect_cfg, contigs=contigs,
                                         reads=reads)
         _checkpoint(cfg, pile_ups=pile_ups)
     insertions = resume.load_insertions()
     if insertions is None:
-        with trace_execution("stage.process"):
+        with trace.span("stage.process"):
             insertions = process_pile_ups(
                 pile_ups, ctx, contigs, reads, homogenized,
                 ProcessConfig(allow_single_reads=cfg.allow_single_reads,
@@ -258,7 +260,7 @@ def close_gaps(contigs, structure, reads: SeqStore, read_list, cfg: PipelineConf
         _checkpoint(cfg, insertions=insertions)
     out_cfg = OutputConfig(join_policy=cfg.join_policy,
                            max_insertion_error=cfg.max_insertion_error)
-    with trace_execution("stage.output"):
+    with trace.span("stage.output"):
         result = build_output(contigs, structure, insertions, out_cfg)
 
     if cfg.no_validation:
@@ -277,7 +279,7 @@ def close_gaps(contigs, structure, reads: SeqStore, read_list, cfg: PipelineConf
     return result
 
 
-@trace_execution
+@trace.span
 def _validation_pass(result, read_list, reads: SeqStore, cfg: PipelineConfig,
                      primary=None):
     """Re-map reads to the preliminary assembly and validate closed gaps.
@@ -514,7 +516,7 @@ class _ResumeState:
             return None
         from .io.store import load_alignments, load_mask
 
-        with trace_execution("resume.masks"):
+        with trace.span("resume.masks"):
             dust = load_mask(os.path.join(self.dir, "dust.mask.npz"))
             repeats = load_mask(os.path.join(self.dir, "repeats.mask.npz"))
             homog = load_mask(os.path.join(self.dir, "repeats-H.mask.npz"))
@@ -553,6 +555,7 @@ class _ResumeState:
                  numPurged=len(skip))
         return skip
 
+    @trace.span("io.checkpoint")
     def save_validation(self, skip: set):
         import json as _json
 
@@ -562,6 +565,7 @@ class _ResumeState:
             _json.dump({"skip_gaps": sorted(list(p) for p in skip)}, fh)
 
 
+@trace.span("io.checkpoint")
 def _checkpoint(cfg: PipelineConfig, masks=None, las=None, pile_ups=None,
                 insertions=None):
     """Persist stage artifacts to ``cfg.workdir`` (the reference's

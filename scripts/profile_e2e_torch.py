@@ -12,8 +12,8 @@ kernels (timed apart), then runs ``close_gaps`` ``--calls`` times in
 this process on ``--device`` (the card unless ``cpu`` is asked for).
 Every call runs under a :class:`~dentist_tpu_torch.utils.stacks.StackSampler`,
 which charges host time to functions, stages (mapping, self-alignment,
-process, validation, ...) and threads, the pools' workers included;
-the ``DENTIST_TPU_PROF=1`` sections (``utils/prof.py``) are on; the last
+process, validation, ...) and threads, the pools' workers included,
+and records the port's spans (``utils/trace.py``); the last
 call on the card also runs under ``torch.profiler`` with CUDA activity
 only, for the card's busy share.  Diagnostics go to stderr, the section
 and host tables among them; the last line of stdout is one JSON object:
@@ -29,7 +29,6 @@ equal) ``check_results``' gap counts and the gaps not closed byte-exact
 import os
 import sys
 
-os.environ.setdefault("DENTIST_TPU_PROF", "1")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import contextlib  # noqa: E402
@@ -78,7 +77,7 @@ def main():
     from dentist_tpu_torch.ops import banded
     from dentist_tpu_torch.pipeline import PipelineConfig, close_gaps
     from dentist_tpu_torch.scenarios import inexact_gaps, phase_c_scenario
-    from dentist_tpu_torch.utils import prof
+    from dentist_tpu_torch.utils import trace
     from dentist_tpu_torch.utils.log import STAGE_SECONDS, reset_stage_seconds
     from dentist_tpu_torch.utils.stacks import (PIPELINE_STAGES, StackSampler,
                                                 format_report)
@@ -110,20 +109,21 @@ def main():
         traced = cuda and i == args.calls - 1
         reset_stage_seconds()
         reset_launch_counts()
-        prof._acc.clear()
         if cuda:
             torch.cuda.reset_peak_memory_stats()
         epoch0 = banded.device_store().epoch if cuda else 0
         sampler = StackSampler(stages=PIPELINE_STAGES)
         with (profile(activities=[ProfilerActivity.CUDA]) if traced
-              else contextlib.nullcontext()) as trace:
+              else contextlib.nullcontext()) as device_trace:
             t0 = time.perf_counter()
+            trace.start()
             with sampler:
                 result = close_gaps(contigs, structure, store, reads,
                                     PipelineConfig(read_coverage=20.0))
                 if cuda:
                     torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+            recorded = trace.stop()
         host = sampler.report(10)
         call = {
             "wall_s": wall,
@@ -142,13 +142,14 @@ def main():
               f"launches {json.dumps(call['launches'])}", file=sys.stderr)
         print(format_report(host, sampler.interval), file=sys.stderr)
         if traced:
-            busy_ms, by_name = device_busy(trace)
+            busy_ms, by_name = device_busy(device_trace)
             call["busy"] = {"ms": busy_ms, "share": busy_ms / 1e3 / wall,
                             "by_name": {k[:80]: v for k, v in list(by_name.items())[:12]}}
             print(f"device busy {busy_ms:.1f} ms of {wall:.2f} s "
                   f"({100 * busy_ms / 1e3 / wall:.2f} %)", file=sys.stderr)
-        call["sections"] = {k: v for k, v in sorted(prof._acc.items())}
-        prof.prof_report()
+        call["sections"] = trace.sections(recorded)
+        print("spans [s, hits, bytes]: " + json.dumps(call["sections"]),
+              file=sys.stderr)
         calls.append(call)
         digests.append(hashlib.sha256(repr(result.records).encode()).hexdigest())
         if first is None:

@@ -23,7 +23,7 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 COPIES = [
-    "utils/__init__.py", "utils/log.py", "utils/regions.py", "utils/prof.py",
+    "utils/__init__.py", "utils/log.py", "utils/regions.py",
     "io/__init__.py", "io/fasta.py", "io/store.py", "io/dazzdb.py",
     "models/alignments.py", "models/scaffold.py", "models/insertions.py",
     "models/sequences.py", "models/output.py", "models/validate.py",
